@@ -1,0 +1,11 @@
+from boxfusion_tpu_torch.models.clip.head import OpenVocabLabeler, build_labeler, scale_boxes
+from boxfusion_tpu_torch.models.clip.model import CLIPConfig, CLIPImageTower, CLIPTextTower
+
+__all__ = [
+    "OpenVocabLabeler",
+    "build_labeler",
+    "scale_boxes",
+    "CLIPImageTower",
+    "CLIPTextTower",
+    "CLIPConfig",
+]

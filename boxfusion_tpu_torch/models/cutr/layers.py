@@ -87,12 +87,13 @@ class PatchConv(nn.Module):
     state dict loads as it is.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, k: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, k: int, dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
         super().__init__()
         self.k = k
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, dt = self.k, self.compute_dtype
@@ -101,7 +102,8 @@ class PatchConv(nn.Module):
         x = x[:, : Ho * k, : Wo * k]  # VALID padding drops a ragged edge
         patches = x.reshape(B, Ho, k, Wo, k, C).permute(0, 1, 3, 2, 4, 5).reshape(B, Ho, Wo, k * k * C)
         w = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
-        return F.linear(patches.to(dt), w.to(dt), self.bias.to(dt))
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(patches.to(dt), w.to(dt), b)
 
 
 class Embedding(nn.Embedding):

@@ -83,6 +83,10 @@ class CuTRConfig:
     # compute dtype of the matmul-heavy paths; parameters, coordinate
     # decoding, softmax and norm statistics stay float32
     dtype: torch.dtype = torch.float32
+    # Backbone attention: "xla" (the plain form, the JAX package's choice for
+    # CuTR), "kernel" (ops/attention_kernel.py:whole_seq_attention) or "auto"
+    # ("kernel" for CUDA tensors); see models/cutr/vit.py:JointAttention.
+    attn_impl: str = "xla"
 
     @property
     def vit_heads(self) -> int:
@@ -226,6 +230,7 @@ class CubifyTransformer(nn.Module):
                 encoder_norm=not cfg.depth_model,
                 pretrain_img_size=512 if not cfg.depth_model else 224,
                 dtype=dt,
+                attn_impl=cfg.attn_impl,
             )
         ])
         self.pos_embedding = CameraRayEmbedding(cfg.decoder_dim, dtype=dt)

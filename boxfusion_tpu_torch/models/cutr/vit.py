@@ -15,8 +15,11 @@ reference's ViTDet-style backbone with joint RGB-D windowed attention
   * global blocks {2,5,8,11} attend RGB only (vit.py:466,511-515);
   * the MLP is shared between modalities within a block (vit.py:326-340).
 
-Attention is the plain einsum + float32-softmax form (the JAX package's
-default for CuTR): scores in the compute dtype, softmax in float32.
+Attention is by default the plain einsum + float32-softmax form (the JAX
+package's default for CuTR, "xla"): scores in the compute dtype, softmax in
+float32.  ``attn_impl="kernel"`` takes ``ops/attention_kernel.py:
+whole_seq_attention`` instead (the CUDA kernel on a CUDA tensor, its plain
+twin on a CPU tensor); "auto" is "kernel" for CUDA tensors.
 Module names follow the original state dict (``backbone.0.blocks.i.attn.qkv``
 and so on) so checkpoints load with ``load_state_dict``.
 """
@@ -29,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from boxfusion_tpu_torch.models.cutr.layers import LayerNorm, Linear, PatchConv, resize_pos_embed
+from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
 
 DEPTH_WINDOW_SIZES = (4, 8, 16)
 
@@ -81,11 +85,21 @@ class JointAttention(nn.Module):
     Both modalities share the qkv / proj weights; the keys and values are
     the concatenated sequence, and each query block takes its own softmax
     row over it.
+
+    ``attn_impl="kernel"``: heads stay packed along the channel axis, the RGB
+    and (in window blocks) depth tokens are concatenated into one sequence
+    (the softmax is per query row over the whole key axis, so stacking both
+    query blocks changes nothing), and one ``whole_seq_attention`` call
+    serves both.  "xla" is the plain form; "auto" picks "kernel" for CUDA
+    tensors.
     """
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, attn_impl: str = "xla"):
         super().__init__()
+        if attn_impl not in ("auto", "kernel", "xla"):
+            raise ValueError(f"attn_impl must be 'auto', 'kernel' or 'xla', got {attn_impl!r}")
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
 
@@ -93,6 +107,20 @@ class JointAttention(nn.Module):
         B, H, W, C = x.shape
         hd = C // self.num_heads
         scale = hd ** -0.5
+
+        impl = self.attn_impl
+        if impl == "auto":
+            impl = "kernel" if x.device.type == "cuda" else "xla"
+        if impl == "kernel":
+            n_rgb = H * W
+            q, k, v = self.qkv(x.reshape(B, n_rgb, C)).chunk(3, dim=-1)
+            if depth is not None:
+                _, Hd, Wd, _ = depth.shape
+                qd, kd, vd = self.qkv(depth.reshape(B, Hd * Wd, C)).chunk(3, dim=-1)
+                q, k, v = (torch.cat(p, dim=1) for p in ((q, qd), (k, kd), (v, vd)))
+            o = self.proj(whole_seq_attention(q, k, v, heads=self.num_heads, sm_scale=scale))
+            out_d = o[:, n_rgb:].reshape(B, Hd, Wd, C) if depth is not None else None
+            return o[:, :n_rgb].reshape(B, H, W, C), out_d
 
         def split_qkv(t, n):
             r = self.qkv(t).reshape(B, n, 3, self.num_heads, hd)
@@ -137,13 +165,14 @@ class Block(nn.Module):
     (vit.py:206-342)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, window_size: int = 0,
-                 depth_modality: bool = False, layer_scale: bool = False, dtype=torch.float32):
+                 depth_modality: bool = False, layer_scale: bool = False, dtype=torch.float32,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.window_size = window_size
         self.depth_modality = depth_modality
         self.norm1 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.norm2 = LayerNorm(dim, eps=1e-6, dtype=dtype)
-        self.attn = JointAttention(dim, num_heads, dtype=dtype)
+        self.attn = JointAttention(dim, num_heads, dtype=dtype, attn_impl=attn_impl)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
         if layer_scale:
             self.ls1 = LayerScale(dim, dtype=dtype)
@@ -216,6 +245,7 @@ class ViT(nn.Module):
         pretrain_img_size: int = 224,
         patch: int = 16,
         dtype=torch.float32,
+        attn_impl: str = "xla",
     ):
         super().__init__()
         self.grid = pretrain_img_size // patch
@@ -233,7 +263,7 @@ class ViT(nn.Module):
                 window_size=window_size if i in window_block_indexes else 0,
                 # depth participates only in window blocks (vit.py:466)
                 depth_modality=depth_modality and i in window_block_indexes,
-                layer_scale=layer_scale, dtype=dtype,
+                layer_scale=layer_scale, dtype=dtype, attn_impl=attn_impl,
             )
             for i in range(depth)
         )

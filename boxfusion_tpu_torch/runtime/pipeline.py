@@ -3,22 +3,21 @@
 Port of the host engine ``boxfusion_tpu/runtime/pipeline.py:OnlinePipeline``.
 Capability target: the ``run()`` state machine of the reference driver
 (reference demo.py:33-387): per-keyframe detection, score/uv/floor/size
-filters (demo.py:138-148), camera->world lift + corner projection
-(demo.py:216-221), STEP1 spatial association (demo.py:262), STEP2
-small-object correspondence (demo.py:273-289), manager updates and
-multi-view PST fusion (demo.py:292-305).
+filters (demo.py:138-148), open-vocab labeling + CLIP score boost
+(demo.py:161-171), camera->world lift + corner projection (demo.py:216-221),
+STEP1 spatial association (demo.py:262), STEP2 small-object correspondence
+(demo.py:273-289), manager updates and multi-view PST fusion
+(demo.py:292-305).
 
 Division of labor:
-  * dense math (model forward, pairwise OBB IoU, box projections, the whole
-    PST optimization across all fusable objects) runs on the device;
+  * dense math (model forward, CLIP crops and tower, pairwise OBB IoU, box
+    projections, the whole PST optimization across all fusable objects)
+    runs on the device;
   * sequential greedy decisions (NMS order, fusion-list surgery) run in
     numpy on the host -- microseconds for the few hundred boxes per
     keyframe;
   * the pairwise IoU matrix is cached across keyframes and only the rows of
     new or fusion-moved boxes are recomputed.
-
-Open-vocabulary labeling (the CLIP labeler) is not part of this package
-yet: every detection is labeled "object".
 """
 from __future__ import annotations
 
@@ -40,6 +39,7 @@ from boxfusion_tpu_torch.fusion import (
     optimize_boxes,
 )
 from boxfusion_tpu_torch.geometry.boxes import CORNER_SIGNS
+from boxfusion_tpu_torch.models.clip.head import scale_boxes
 from boxfusion_tpu_torch.runtime.stream import iter_with_last
 from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -100,16 +100,23 @@ class ObservationStore:
         self.R = np.zeros((0, 3, 3), np.float32)
         self.scores = np.zeros((0,), np.float32)
         self.corners2d = np.zeros((0, 8, 2), np.float32)
+        # per-observation open-vocab label, recorded at append time: the
+        # world's category list is compacted on box removal, so indexing it
+        # by observation id would misalign after the first NMS drop.
+        self.categories: list = []
 
     def __len__(self):
         return len(self.scores)
 
-    def append(self, cam_pose, xyzlhw, R, scores, corners2d):
+    def append(self, cam_pose, xyzlhw, R, scores, corners2d, categories=None):
         self.cam_pose = np.concatenate([self.cam_pose, cam_pose], 0)
         self.xyzlhw = np.concatenate([self.xyzlhw, xyzlhw], 0)
         self.R = np.concatenate([self.R, R], 0)
         self.scores = np.concatenate([self.scores, scores], 0)
         self.corners2d = np.concatenate([self.corners2d, corners2d], 0)
+        self.categories += list(categories) if categories is not None else (
+            ["object"] * len(scores)
+        )
 
 
 class OnlinePipeline:
@@ -118,17 +125,23 @@ class OnlinePipeline:
     Args:
       cfg: a Config (utils/config.py).
       detector: Frame -> dict of numpy detections (CuTRDetector or an oracle).
+      labeler: optional open-vocab labeler: (image, boxes2d) ->
+        (categories list[str], features (N, F), sims (N,)); without one every
+        detection is labeled "object".
       device: where association geometry and fusion run (default "cuda";
         raises if there is none).
 
     ``timings`` accumulates host-clock seconds per stage: "detect" (the
-    detector call, which ends in a device-to-host copy), "geometry" and
-    "fusion" (each ends in one).
+    detector call, which ends in a device-to-host copy), "label" (the
+    labeler call, which ends in one), "geometry" and "fusion" (each ends in
+    one).
     """
 
-    def __init__(self, cfg, detector: Callable, device: DeviceLike = None):
+    def __init__(self, cfg, detector: Callable, labeler: Optional[Callable] = None,
+                 device: DeviceLike = None):
         self.cfg = cfg
         self.detector = detector
+        self.labeler = labeler
         self.device = resolve_device(device)
         self.manager = BoxManager(cfg)
         self.world = WorldState.empty()
@@ -188,7 +201,25 @@ class OnlinePipeline:
         det = self.detector(frame)
         self._time("detect", t0)
         det = self._filter_detections(det, (h, w))
-        categories = ["object"] * len(det["scores"])
+
+        # open-vocab labeling + CLIP score boost (demo.py:161-171)
+        if self.labeler is not None and len(det["scores"]) > 0:
+            t0 = time.perf_counter()
+            boxes = scale_boxes(
+                det["pred_boxes"], h, w, scale=float(cfg["detection"]["scale_box"])
+            )
+            categories, features, sims = self.labeler(frame.image, boxes)
+            self._time("label", t0)
+            det["scores"] = det["scores"] + (
+                float(cfg["box_fusion"]["clip_sim_coeff"]) * sims / 100.0
+            )
+            keep = np.asarray([c != "" for c in categories])
+            det = {k: v[keep] for k, v in det.items()}
+            categories = [c for c in categories if c != ""]
+            features = features[keep]
+        else:
+            categories = ["object"] * len(det["scores"])
+            features = np.zeros((len(det["scores"]), 0), np.float32)
 
         n_new = len(det["scores"])
         if n_new == 0:
@@ -230,9 +261,10 @@ class OnlinePipeline:
             frame_id=np.full(n_new, count, np.int64),
             init_id=init_id,
             valid_num=np.zeros(n_new, np.float32),
+            features=features,
         )
 
-        self.obs.append(cam_pose, xyzlhw_w, R_w, new_rows["scores"], corners2d)
+        self.obs.append(cam_pose, xyzlhw_w, R_w, new_rows["scores"], corners2d, categories)
         self.box_count += n_new
         self.manager.num_record[count] = self.box_count
 

@@ -1,0 +1,90 @@
+"""The port's whole-sequence attention against the JAX package's, on the CPU.
+
+On the CPU ``whole_seq_attention`` runs its plain twin (the CUDA kernel has no
+CPU mode; chip_smoke.py and the ``cuda``-marked test of test_torch_package.py
+hold the kernel to the twin on the card).  Here the twin is held to the
+Pallas kernel run in interpret mode, at the two shapes of
+tests/test_ops.py:51-86 and at the JAX package's own bound for them
+(rtol = atol = 1e-5, float32 reassociation only).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from boxfusion_tpu.ops.attention_kernel import whole_seq_attention as jax_whole_seq_attention
+
+from boxfusion_tpu_torch.ops import attention_kernel as ak
+from boxfusion_tpu_torch.ops.attention_kernel import (
+    whole_seq_attention,
+    whole_seq_attention_reference,
+)
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("seed,B,T,H,HD", [(0, 3, 37, 4, 16), (1, 2, 128, 2, 64)],
+                         ids=["ragged", "aligned"])
+def test_twin_matches_pallas_interpret(seed, B, T, H, HD):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, T, H * HD).astype(np.float32) for _ in range(3))
+    scale = HD ** -0.5
+    want = np.asarray(jax_whole_seq_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              heads=H, sm_scale=scale, interpret=True))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    before = whole_seq_attention.launches
+    got = whole_seq_attention(*args, heads=H, sm_scale=scale)
+    assert whole_seq_attention.launches == before  # a CPU tensor launches nothing
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(
+        got.numpy(), whole_seq_attention_reference(*args, H, scale).numpy())
+
+
+def test_wrapper_takes_chunk_views_and_bfloat16():
+    """The tower hands the wrapper the three chunk views of one qkv tensor;
+    in bfloat16 the result is within bfloat16 rounding of float32 math."""
+    rng = np.random.RandomState(2)
+    qkv = torch.from_numpy(rng.randn(2, 50, 3 * 64).astype(np.float32))
+    q, k, v = qkv.chunk(3, dim=-1)
+    want = whole_seq_attention(q.contiguous(), k.contiguous(), v.contiguous(), 2, 32 ** -0.5)
+    got = whole_seq_attention(q, k, v, 2, 32 ** -0.5)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    lo = whole_seq_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), 2, 32 ** -0.5)
+    assert lo.dtype == torch.bfloat16
+    # one bfloat16 rounding of the scores, the probabilities and the output
+    np.testing.assert_allclose(lo.float().numpy(), want.numpy(), atol=3e-2, rtol=0)
+
+
+def test_strided_views_are_passed_through_or_copied():
+    qkv = torch.zeros(2, 5, 3 * 64, dtype=torch.bfloat16)
+    q = qkv.chunk(3, dim=-1)[1]
+    assert ak._strided(q) is q                      # rows 16-byte aligned: read in place
+    odd = torch.zeros(2, 5, 70, dtype=torch.bfloat16)[:, :, 3:67]
+    assert ak._strided(odd).is_contiguous() and ak._strided(odd) is not odd
+    t = torch.zeros(2, 64, 5).transpose(1, 2)       # channel axis not contiguous
+    assert ak._strided(t).is_contiguous()
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "mixed", "heads", "width", "device"])
+def test_wrapper_rejects(case):
+    q = torch.zeros(1, 4, 64)
+    if case == "shape":
+        with pytest.raises(ValueError, match="q's shape"):
+            whole_seq_attention(q, torch.zeros(1, 5, 64), q, 2, 1.0)
+    elif case == "dtype":
+        h = q.half()
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            whole_seq_attention(h, h, h, 2, 1.0)
+    elif case == "mixed":
+        with pytest.raises(TypeError, match="k is"):
+            whole_seq_attention(q, q.bfloat16(), q, 2, 1.0)
+    elif case == "heads":
+        with pytest.raises(ValueError, match="multiple of heads"):
+            whole_seq_attention(q, q, q, 3, 1.0)
+    elif case == "width":
+        with pytest.raises(ValueError, match="head width"):
+            whole_seq_attention(q, q, q, 8, 1.0)  # 8-wide heads
+    else:
+        m = torch.zeros(1, 4, 64, device="meta")
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            whole_seq_attention(m, m, m, 2, 1.0)

@@ -104,6 +104,33 @@ def test_cutr_trained_fixture_matches_jax(jax_side):
     assert got["scores"].max() > 0.1
 
 
+def test_cutr_attn_impl_kernel_equals_plain():
+    """``attn_impl="kernel"`` packs heads along the channel axis and joins RGB
+    and depth tokens into one sequence; on the CPU the wrapper runs its twin,
+    so the two paths differ by float32 reassociation only: 1e-5 on the packaged
+    scores and 3D boxes; raw logits and pixel boxes (up to 256) 1e-4 + 1e-5
+    relative."""
+    inputs = _inputs()
+    plain = make_cutr(192, depth_model=True, device="cpu", seed=3)
+    kern = make_cutr(192, depth_model=True, device="cpu", seed=3, attn_impl="kernel")
+    assert plain.cfg.attn_impl == "xla" and kern.backbone[0].blocks[0].attn.attn_impl == "kernel"
+    kern.load_state_dict(plain.state_dict(), strict=True)
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+
+    with torch.no_grad():
+        want = plain(_torch_batch(inputs), train=True)
+        before = whole_seq_attention.launches
+        got = kern(_torch_batch(inputs), train=True)
+    assert whole_seq_attention.launches == before  # CPU tensors: the twin, no launch
+    for key in ("logits", "boxes"):
+        np.testing.assert_allclose(got["intermediates"][-1][key].numpy(),
+                                   want["intermediates"][-1][key].numpy(), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(got["scores"].numpy(), want["scores"].numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got["boxes3d"].numpy(), want["boxes3d"].numpy(), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="attn_impl"):
+        make_cutr(192, device="cpu", attn_impl="flash")
+
+
 def test_load_torch_state_dict_rejects_incomplete():
     sd = torch.load(FIXTURE, map_location="cpu", weights_only=True)["model"]
     sd = {k: v for k, v in sd.items() if not k.startswith("decoder.norm")}

@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                          timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 30 and res["bad"] == [], res
+    assert res["n"] >= 43 and res["bad"] == [], res
+    mods = _all_modules()
+    for new in ("cli", "utils.io", "ops.attention_kernel", "models.clip.model",
+                "models.clip.head", "models.clip.convert", "models.clip.text"):
+        assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -77,10 +81,20 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     path = build.library_path("fitness_kernel")
     assert path.parent == build.BUILD_DIR and path.name.startswith("libfitness_kernel-")
     assert path.suffix == ".so"
-    flags = " ".join(build.NVCC_FLAGS)
+    flags = " ".join(build.NVCC_FLAGS["fitness_kernel"])
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "use_fast_math" not in flags
     assert (build.CSRC_DIR / build.SOURCES["fitness_kernel"]).exists()
+    # flags are per source: the fitness kernel's are exactly what they were when
+    # every source shared one tuple (its library name, a hash of source and
+    # flags, does not move); the attention kernel keeps FMA contraction
+    assert flags == ("-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared "
+                     "-Xcompiler -fPIC -fmad=false -Xptxas -v")
+    attn = " ".join(build.NVCC_FLAGS["attention_kernel"])
+    assert "arch=compute_90a,code=sm_90a" in attn and "fmad" not in attn
+    assert "use_fast_math" not in attn and set(build.NVCC_FLAGS) == set(build.SOURCES)
+    assert build.library_path("attention_kernel").name.startswith("libattention_kernel-")
+    assert (build.CSRC_DIR / build.SOURCES["attention_kernel"]).exists()
 
 
 def test_wrapper_rejects_unsupported_devices():
@@ -113,6 +127,34 @@ def test_fitness_kernel_on_card_matches_twin():
     assert fitness_cells.launches == before + 1
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= FITNESS_TOL
+
+
+@pytest.mark.cuda
+def test_attention_kernel_on_card_matches_twin():
+    """Both attention kernels (float32 FMA, bfloat16 tensor cores) against
+    the twin at chip_smoke's shapes and tolerances, strided chunk views as
+    the CLIP block passes them, and a launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    sys.path.insert(0, REPO)
+    from chip_smoke import ATTENTION_CASES, attention_case, attention_tolerance
+
+    from boxfusion_tpu_torch.ops.attention_kernel import (
+        whole_seq_attention,
+        whole_seq_attention_reference,
+    )
+
+    for case in ATTENTION_CASES:
+        q, k, v, heads, scale = attention_case(torch.device("cuda"), case)
+        before = whole_seq_attention.launches
+        got = whole_seq_attention(q, k, v, heads, scale)
+        want = whole_seq_attention_reference(q, k, v, heads, scale)
+        torch.cuda.synchronize()
+        assert whole_seq_attention.launches == before + 1
+        assert got.dtype == q.dtype and got.shape == q.shape and torch.isfinite(got).all()
+        atol, rtol = attention_tolerance(q.dtype)
+        excess = (got.float() - want.float()).abs() - (atol + rtol * want.float().abs())
+        assert float(excess.max()) <= 0, case
 
 
 @pytest.mark.cuda

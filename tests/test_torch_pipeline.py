@@ -75,6 +75,85 @@ def test_pipeline_oracle_matches_jax_host_engine(n_frames, n_boxes, seq_seed, no
     _assert_same_world(jpipe, jworld, pipe, world, expect_fusion=fuses)
 
 
+def _tiny_labelers(sim_thres):
+    """The JAX labeler and the port's with the same tiny image tower (numpy
+    weights carried across by models/clip/convert.py) and text features."""
+    import jax.numpy as jnp
+
+    from boxfusion_tpu.models.clip.head import OpenVocabLabeler as JaxLabeler
+    from boxfusion_tpu.models.clip.model import CLIPConfig as JaxCLIPConfig
+    from boxfusion_tpu.models.clip.model import CLIPImageTower as JaxTower
+
+    from boxfusion_tpu_torch.models.clip import CLIPConfig, OpenVocabLabeler
+    from boxfusion_tpu_torch.models.clip.convert import image_tower_from_flax
+
+    kw = dict(patch=32, width=64, layers=2, heads=2, embed_dim=32)
+    shapes = jax.eval_shape(JaxTower(JaxCLIPConfig(**kw)).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 224, 224, 3)))
+    rng = np.random.RandomState(5)
+
+    def fill(path, leaf):
+        if getattr(path[-1], "key", "") == "scale":
+            return np.ones(leaf.shape, np.float32)
+        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 4
+        return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, shapes)
+    tf = rng.randn(6, 32).astype(np.float32)
+    names = [f"class{i}" for i in range(6)]
+    jlab = JaxLabeler(names, tf, image_params=jax.tree.map(jnp.asarray, params),
+                      cfg=JaxCLIPConfig(**kw), sim_thres=sim_thres, max_boxes=8)
+    lab = OpenVocabLabeler(names, tf, image_params=image_tower_from_flax(params),
+                           cfg=CLIPConfig(**kw), sim_thres=sim_thres, max_boxes=8, device="cpu")
+    return jlab, lab
+
+
+def test_pipeline_with_labeler_matches_jax_host_engine():
+    """The labelled host engine: oracle detections, a tiny CLIP labeler with
+    the same weights on both sides, the CLIP score boost on, and a
+    background threshold that drops some detections.  Identical init_id
+    sets, categories (world rows and observation store) and fusion flags;
+    coordinates at the engine bounds; carried features within 1e-4."""
+    def caps(c):
+        c = _small_caps(c)
+        c["box_fusion"]._data["clip_sim_coeff"] = 1.0
+        return c
+
+    # the winning similarities of this run lie in 33.8 .. 37.2; the nearest to
+    # 35.2 is 0.055 away, far above the 1e-3 the two sides differ by
+    jlab, lab = _tiny_labelers(sim_thres=35.2)
+    jseq = JaxSequence(n_frames=40, n_boxes=5, seed=1)
+    jpipe = JaxPipeline(caps(jax_load_config("config/ca1m.yaml")),
+                        JaxOracle(jseq, noise=0.02, seed=2), labeler=jlab)
+    jworld = jpipe.run(jseq, gap=5, warmup=True)
+
+    seq = SyntheticSequence(n_frames=40, n_boxes=5, seed=1)
+    pipe = OnlinePipeline(caps(load_config("config/ca1m.yaml")),
+                          OracleDetector(seq, noise=0.02, seed=2), labeler=lab, device="cpu")
+    world = pipe.run(seq, gap=5, warmup=True)
+
+    _assert_same_world(jpipe, jworld, pipe, world,
+                       expect_fusion=bool(np.any(jpipe.manager.fusion_flag)))
+    oj, ot = np.argsort(jworld.arrays["init_id"]), np.argsort(world.arrays["init_id"])
+    assert [world.categories[i] for i in ot] == [jworld.categories[i] for i in oj]
+    assert pipe.obs.categories == jpipe.obs.categories
+    assert pipe.box_count == jpipe.box_count and len(pipe.obs.categories) == pipe.box_count
+    cats = set(pipe.obs.categories)
+    assert "" not in cats and "object" not in cats and len(cats) >= 1
+    np.testing.assert_allclose(world.arrays["features"][ot], jworld.arrays["features"][oj],
+                               atol=1e-4, rtol=0)
+    np.testing.assert_allclose(world.arrays["scores"][ot], jworld.arrays["scores"][oj],
+                               atol=1e-4, rtol=0)
+    assert world.arrays["scores"].max() > 0.9  # boosted above the oracle's 0.9
+    assert "label" in pipe.timings and pipe.timings["label"] > 0
+    # the threshold did drop rows: fewer observations than an unlabelled run keeps
+    plain = OnlinePipeline(caps(load_config("config/ca1m.yaml")),
+                           OracleDetector(seq, noise=0.02, seed=2), device="cpu")
+    plain.run(seq, gap=5, warmup=True)
+    assert 0 < pipe.box_count < plain.box_count
+    assert set(plain.obs.categories) == {"object"}
+
+
 @pytest.mark.parametrize("n_frames,gap", [(8, 3), (7, 3), (15, 5)])
 def test_keyframes_and_hooks_match_jax(n_frames, gap):
     """The last frame is always a keyframe (demo.py:200), with no double
