@@ -1,6 +1,6 @@
 """Command-line entry point: run online detection + fusion on a sequence.
 
-Port of ``boxfusion_tpu/cli.py`` (host engine).  Capability target: the
+Port of ``boxfusion_tpu/cli.py`` (host and device engines).  Capability target: the
 reference's ``demo.py`` entry point (demo.py:389-467): same positional
 dataset argument and flags, same config handling (including --seq datadir
 rewriting, demo.py:416-431, and the skip-if-output-exists early exit,
@@ -10,11 +10,17 @@ Usage:
   python -m boxfusion_tpu_torch.cli ca1m --config config/ca1m.yaml \
       --model-path cutr_rgbd.pth --seq 42898867
   python -m boxfusion_tpu_torch.cli synthetic --config config/ca1m.yaml
+  python -m boxfusion_tpu_torch.cli synthetic --config config/ca1m.yaml \
+      --engine device --capacity 48
 
 Everything runs on ``--device`` (default: the GPU; the run raises if there is
-none -- ``--device cpu`` asks for the plain PyTorch path).  Only the host
-engine exists in this package so far: ``--engine`` offers ``host`` alone and
-argparse refuses the others.
+none -- ``--device cpu`` asks for the plain PyTorch path).  ``--engine host``
+mirrors the reference's host bookkeeping; ``--engine device`` keeps the world,
+the manager's lists and the observation bank on the device
+(runtime/device_pipeline.py) and can snapshot and resume them
+(``--save-state`` / ``--restore-state`` / ``--restore-count``).  The fused
+engine (``--engine fused``, ``--chunk``) is not part of this package yet
+(ROADMAP.md section A.5) and is refused by name.
 """
 from __future__ import annotations
 
@@ -47,11 +53,30 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "--engine",
         default="host",
-        choices=["host"],
-        help="'host' mirrors the reference's host bookkeeping; the device and "
-        "fused engines are not part of this package yet",
+        choices=["host", "device", "fused"],
+        help="'device' keeps association/fusion state on the device, with a "
+        "separate detector pass; 'host' mirrors the reference's host "
+        "bookkeeping; 'fused' is not part of this package yet (ROADMAP.md "
+        "section A.5) and is refused",
     )
     p.add_argument("--verbose", action="store_true")
+    p.add_argument(
+        "--capacity", default=512, type=int,
+        help="world-state slots for the device engine (capacity overflow "
+        "drops lowest-priority detections, counted in stats)",
+    )
+    p.add_argument(
+        "--save-state", default=None, metavar="PATH",
+        help="device engine: snapshot the full pipeline state after the run "
+        "(resume a partially-streamed sequence with --restore-state)",
+    )
+    p.add_argument(
+        "--restore-state", default=None, metavar="PATH",
+        help="device engine: restore a pipeline snapshot before streaming "
+        "(pair with --restore-count for the frame counter)",
+    )
+    p.add_argument("--restore-count", default=0, type=int,
+                   help="frame counter to resume from with --restore-state")
     p.add_argument(
         "--validate-checkpoint", action="store_true",
         help="real-weights readiness check: load --model-path (and "
@@ -68,6 +93,12 @@ def main(argv=None) -> int:
     if not os.path.exists(args.config):
         raise ValueError("Missing config path")
     cfg = load_config(args.config)
+
+    if args.engine == "fused":
+        raise NotImplementedError(
+            "--engine fused (runtime/fused.py, with --chunk) is not part of "
+            "boxfusion_tpu_torch yet (ROADMAP.md section A.5); use --engine device"
+        )
 
     if cfg["vis"]["rerun"]:
         raise NotImplementedError(
@@ -140,7 +171,14 @@ def main(argv=None) -> int:
                 "scannet" if args.dataset_path.lower() == "scannet" else "CA1M"
             )
         dataset = get_dataset(cfg)
-        detector = _build_cutr_detector(args, cfg)
+        # the device engine keeps detections on the device end to end; with
+        # open-vocab labeling it also exports the device image so CLIP
+        # crops/similarity stay there (runtime/device_pipeline.py)
+        device_output = args.engine == "device"
+        detector = _build_cutr_detector(
+            args, cfg, device_output=device_output,
+            export_image=device_output and wants_label,
+        )
 
     if args.every_nth_frame:
         video_id = getattr(dataset, "video_id", None)
@@ -156,6 +194,9 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001
             print(f"[cli] open-vocab labeling disabled: {e}")
 
+    if args.engine == "device":
+        return _run_device_engine(args, cfg, dataset, detector, labeler, out_dir)
+
     from boxfusion_tpu_torch.runtime import OnlinePipeline
 
     pipe = OnlinePipeline(cfg, detector, labeler=labeler, device=args.device)
@@ -169,6 +210,42 @@ def main(argv=None) -> int:
         if cfg["eval"]:
             save_world_boxes(world, class_list, out_dir, video_id, cfg["dataset"])
         save_framewise_boxes(pipe.obs, None, class_list, out_dir)
+    return 0
+
+
+def _run_device_engine(args, cfg, dataset, detector, labeler, out_dir) -> int:
+    from boxfusion_tpu_torch.runtime import DevicePipeline
+
+    pipe = DevicePipeline(cfg, detector, labeler=labeler, capacity=args.capacity,
+                          device=args.device)
+    if args.restore_state:
+        pipe.restore_state(args.restore_state, count=args.restore_count)
+        if args.restore_count:
+            # continue where the saved run stopped: frames [0, restore_count)
+            # were already streamed into the snapshot -- re-streaming them
+            # would duplicate their observations
+            dataset = _NamedIter(
+                itertools.islice(iter(dataset), args.restore_count, None),
+                getattr(dataset, "video_id", "sequence"),
+            )
+        print(f"[cli] resumed pipeline state from {args.restore_state} "
+              f"(frame {args.restore_count})")
+    out = pipe.run(dataset)
+    if args.save_state:
+        pipe.save_state(args.save_state)
+        print(f"[cli] saved pipeline state to {args.save_state} (frame {pipe.count})")
+    print(f"[cli] device engine: {len(out['scores'])} world boxes")
+    if out_dir and cfg["eval"]:
+        import torch
+
+        from boxfusion_tpu_torch.geometry.boxes import box_corners
+        from boxfusion_tpu_torch.utils.io import save_eval_pickle
+
+        corners = box_corners(torch.as_tensor(out["xyzlhw"]), torch.as_tensor(out["R"])).numpy()
+        path = save_eval_pickle(
+            corners, out_dir, getattr(dataset, "video_id", "sequence"), cfg["dataset"]
+        )
+        print(f"[cli] saved {path}")
     return 0
 
 
@@ -296,7 +373,7 @@ def _validate_checkpoint(args, cfg) -> int:
     return 0
 
 
-def _build_cutr_detector(args, cfg):
+def _build_cutr_detector(args, cfg, device_output: bool = False, export_image: bool = False):
     import torch
 
     from boxfusion_tpu_torch.models.cutr import make_cutr
@@ -316,7 +393,8 @@ def _build_cutr_detector(args, cfg):
         print("[cli] no checkpoint given: using random-initialized CuTR")
         model = make_cutr(dimension=args.dimension, depth_model=True, device=args.device,
                           seed=0, dtype=dtype)
-    return CuTRDetector(model, device=args.device)
+    return CuTRDetector(model, device=args.device, device_output=device_output,
+                        export_image=export_image)
 
 
 if __name__ == "__main__":

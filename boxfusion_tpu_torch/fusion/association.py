@@ -71,7 +71,11 @@ def keyframe_geometry(
     corners2d = project_corners_to_image(new_corners3d, _f32(new_poses, dev), K, H, W)
     all_corners3d = box_corners(_f32(all_t, dev), _f32(all_R, dev))
 
-    pair_idx, vals, n_gated = gated_pair_iou(new_corners3d, all_corners3d, MAX_GATED_PAIRS, samples)
+    pair_idx, vals, n_gated = gated_pair_iou(
+        new_corners3d, torch.ones(nn_, dtype=torch.bool, device=dev),
+        all_corners3d, torch.ones(na, dtype=torch.bool, device=dev),
+        MAX_GATED_PAIRS, samples,
+    )
     if n_gated > MAX_GATED_PAIRS:
         warnings.warn(
             f"{n_gated} gated IoU pairs exceed budget {MAX_GATED_PAIRS}; "

@@ -14,13 +14,16 @@ host-side optimizer loop of ``BoxFusion`` (reference box_fusion.py:463-724):
     failures (708-714), final dims clamp >= 0.01 (716-720).
 
 The JAX version vmaps over objects and runs a ``while_loop`` that exits
-early once every object is done.  Here all N objects step together for a
-fixed ``cfg.iters`` iterations: converged objects are frozen (their updates
-are masked by ``done``) and their view cells are masked out of the fitness
-call, whose kernel skips masked cells -- the trajectory is the JAX one (its
-``unroll`` branch shows the same).  One iteration is one fitness launch over
-all (object x view) cells, and nothing in the loop reads a value back to the
-host, so a fused keyframe is ``iters`` launches with no host sync.
+early once every object is done.  Here all N objects step together:
+converged objects are frozen (their updates are masked by ``done``) and
+their view cells are masked out of the fitness call, whose kernel skips
+masked cells, so the trajectory does not depend on when the loop stops.  One
+iteration is one fitness launch over all (object x view) cells.  With
+``cfg.unroll`` the loop runs its fixed ``cfg.iters`` iterations and reads
+nothing back: a fused keyframe is ``iters`` launches with no host sync.
+Without it (the default, as in the JAX package) the loop reads one flag per
+iteration -- every object done? -- and stops early, as the ``while_loop``
+does (utils/device.py:host_reads counts the reads).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import dataclasses
 import torch
 
 from boxfusion_tpu_torch.fusion.kernel import multiview_fitness
-from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device
+from boxfusion_tpu_torch.utils.device import DeviceLike, host_reads, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,26 +49,49 @@ class PSTOptConfig:
     # "kernel" (prepare_observed + fitness_cells: the CUDA kernel on a GPU,
     # its plain twin on the CPU) or "reference" (the prepare_polygon path).
     fitness_impl: str = "kernel"
+    # True: run the fixed `iters` iterations with no device-to-host read.
+    # False: read one flag per iteration and stop once every object is done.
+    # Identical trajectory -- the body freezes converged objects.
+    unroll: bool = False
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum along the last axis (``jnp.argmax``'s tie
+    rule, spelled out so that no backend's choice among ties matters)."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    return torch.where(x == x.amax(-1, keepdim=True), idx, n).amin(-1)
 
 
 def init_opt_params(box_3d: torch.Tensor, R: torch.Tensor, scores: torch.Tensor, mask: torch.Tensor):
     """Initialization from member observations (box_fusion.py:566-600).
 
+    Works on one object or, with leading batch axes, on many at once (the
+    JAX package vmaps it over the fusion slots).
+
     Args:
-      box_3d: (V, 6) member xyzlhw.  R: (V, 3, 3).  scores: (V,).
-      mask: (V,) valid member slots.
+      box_3d: (..., V, 6) member xyzlhw.  R: (..., V, 3, 3).  scores: (..., V).
+      mask: (..., V) valid member slots.
 
     Returns:
-      (xyzlhw (6,), R (3, 3)).
+      (xyzlhw (..., 6), R (..., 3, 3)).
     """
     m = mask.to(box_3d.dtype)
-    nv = torch.clamp(m.sum(), min=1.0)
-    best = torch.argmax(torch.where(mask.bool(), scores, -torch.inf))
-    mean_xyz = (box_3d[:, :3] * m[:, None]).sum(0) / nv
-    get_indices = torch.argsort(torch.argsort(box_3d[best, 3:], stable=True), stable=True)
-    dims_in_best_order = torch.sort(box_3d[:, 3:], dim=1).values[:, get_indices]
-    mean_dims = (dims_in_best_order * m[:, None]).sum(0) / nv
-    return torch.cat([mean_xyz, mean_dims]), R[best]
+    nv = torch.clamp(m.sum(-1, keepdim=True), min=1.0)
+    best = _first_argmax(torch.where(mask.bool(), scores, -torch.inf))  # (...)
+    mean_xyz = (box_3d[..., :3] * m[..., None]).sum(-2) / nv
+    best_dims = torch.gather(
+        box_3d[..., 3:], -2, best[..., None, None].expand(*best.shape, 1, 3)
+    )[..., 0, :]
+    # get_indices[i] = rank position of axis i among the best box's dims
+    get_indices = torch.argsort(torch.argsort(best_dims, dim=-1, stable=True), dim=-1, stable=True)
+    dims_sorted = torch.sort(box_3d[..., 3:], dim=-1).values  # (..., V, 3) small->large
+    dims_in_best_order = torch.gather(
+        dims_sorted, -1, get_indices[..., None, :].expand(dims_sorted.shape)
+    )
+    mean_dims = (dims_in_best_order * m[..., None]).sum(-2) / nv
+    best_R = torch.gather(R, -3, best[..., None, None, None].expand(*best.shape, 1, 3, 3))[..., 0, :, :]
+    return torch.cat([mean_xyz, mean_dims], dim=-1), best_R
 
 
 def _cal_transform(fitness: torch.Tensor, pst: torch.Tensor, search_size: torch.Tensor, cap: int):
@@ -165,6 +191,8 @@ def optimize_boxes(
     done = ~active  # inactive slots are born converged
 
     for _ in range(cfg.iters):
+        if not cfg.unroll and host_reads.read(done.all()):
+            break
         # converged objects' views are masked: the kernel skips their cells
         fitness = multiview_fitness(
             xyzlhw, R, pst, ss, poses, corners, vmask & ~done[:, None], K, H, W,

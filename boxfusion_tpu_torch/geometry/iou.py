@@ -171,29 +171,53 @@ def obb_grid_iou(
 
 def gated_pair_iou(
     corners_q: torch.Tensor,
+    mask_q: torch.Tensor,
     corners_all: torch.Tensor,
+    mask_all: torch.Tensor,
     max_pairs: int = MAX_GATED_PAIRS,
     samples_per_axis: int = GRID_SAMPLES_PER_AXIS,
+    static_pairs: bool = False,
 ):
     """(Q x A) gated pairwise OBB IoU under a fixed pair budget.
 
-    The reference's obb_iou call-site semantics (instances.py:573-613: the
-    containment gate forces IoU = 0, grid IoU otherwise): the cheap gate runs
-    densely over all (Q x A) pairs, then the 25^3 lattice IoU runs only on
-    the first `max_pairs` gated pairs in row-major order -- the pairs the
-    JAX package's ``top_k`` over the 0/1 gate selects.  Gated pairs beyond
-    the budget are scored 0; the caller reports ``n_gated - max_pairs``.
+    The one implementation of the reference's obb_iou call-site semantics
+    (instances.py:573-613: the containment gate forces IoU = 0, grid IoU
+    otherwise), shared by the host engine (fusion/association.py) and the
+    device engine (runtime/device_step.py): the cheap gate runs densely over
+    all (Q x A) pairs of valid boxes, then the 25^3 lattice IoU runs only on
+    the first `max_pairs` gated pairs in row-major order -- the pairs the JAX
+    package's ``top_k`` over the 0/1 gate selects.  Gated pairs beyond the
+    budget are scored 0; the caller reports ``n_gated - max_pairs``.
+
+    Args:
+      corners_q: (Q, 8, 3) query world corners; mask_q: (Q,) validity.
+      corners_all: (A, 8, 3); mask_all: (A,).
+      static_pairs: False reads the gated count to the host (one
+        device-to-host read) and runs the lattice on the gated pairs only.
+        True reads nothing: the lattice runs on min(max_pairs, Q * A) pairs,
+        gated ones first, the others scored 0, and ``n_gated`` stays a tensor.
 
     Returns:
       (pair_idx (k,) int64 flat row-major indices into Q*A, vals (k,) IoUs,
-      n_gated int).
+      n_gated: int, or a 0-d int32 tensor with ``static_pairs``).
     """
     A = corners_all.shape[0]
     gate = obb_intersect_mask(corners_q[:, None], corners_all[None])  # (Q, A)
-    flat_idx = torch.nonzero(gate.reshape(-1)).reshape(-1)
-    n_gated = int(flat_idx.numel())
-    pair_idx = flat_idx[:max_pairs]
+    flat = (gate & mask_q.bool()[:, None] & mask_all.bool()[None]).reshape(-1)
+    if static_pairs:
+        k = min(max_pairs, flat.shape[0])
+        n_gated = flat.sum().to(torch.int32)
+        # stable: gated pairs first, each group in ascending flat index
+        pair_idx = torch.sort(flat.to(torch.int8), descending=True, stable=True).indices[:k]
+    else:
+        flat_idx = torch.nonzero(flat).reshape(-1)
+        n_gated = int(flat_idx.numel())
+        pair_idx = flat_idx[:max_pairs]
+    if pair_idx.shape[0] == 0:
+        return pair_idx, corners_q.new_zeros(0), n_gated
     vals = obb_grid_iou_pairs(
         corners_q[pair_idx // A], corners_all[pair_idx % A], samples_per_axis
     )
+    if static_pairs:
+        vals = torch.where(flat[pair_idx], vals, 0.0)
     return pair_idx, vals, n_gated

@@ -12,8 +12,8 @@ root (nvcc's default without --use_fast_math).  The fitness kernel also gets
 -fmad=false, so that every multiply and add rounds on its own as in its plain
 PyTorch twin and in the TPU kernel it replaces -- its hull and clip tests
 compare against tolerances of 2e-5 x magnitude, where a fused multiply-add
-moves a boundary decision.  The attention kernel is held to a tolerance, not
-to bit equality, and keeps nvcc's default FMA contraction.
+moves a boundary decision.  The two attention kernels are held to a
+tolerance, not to bit equality, and keep nvcc's default FMA contraction.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES: Dict[str, str] = {
     "fitness_kernel": "fitness_kernel.cu",
     "attention_kernel": "attention_kernel.cu",
+    "tiled_attention_kernel": "tiled_attention_kernel.cu",
 }
 
 _COMMON_FLAGS = (
@@ -45,6 +46,7 @@ _COMMON_FLAGS = (
 NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
     "fitness_kernel": _COMMON_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
+    "tiled_attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
 }
 
 

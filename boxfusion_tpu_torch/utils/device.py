@@ -29,6 +29,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+class HostReads:
+    """Count of device-to-host reads that steer control flow.
+
+    Eager PyTorch has no on-device loop or branch: a loop that ends early or
+    a stage that is skipped needs its predicate on the host, and on a CUDA
+    device that read waits for everything enqueued before it.  Every such
+    read in the device engine and in the optimizer's early exit goes through
+    ``read``, so a run can say how many it paid for.
+    """
+
+    def __init__(self):
+        self.count = 0
+
+    def read(self, value: torch.Tensor):
+        """``value`` on the host: a Python scalar for a 0-d tensor, else a
+        list.  One read, whatever its size."""
+        self.count += 1
+        return value.tolist()
+
+
+host_reads = HostReads()
+
+
 def torch_dtype(dtype: Optional[Union[str, torch.dtype]]) -> torch.dtype:
     """'float32' / 'bfloat16' / a torch dtype -> torch dtype (None -> f32)."""
     if dtype is None:

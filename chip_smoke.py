@@ -17,7 +17,14 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 particles; whole_seq_attention at the CLIP label batch
                 (B = 128, T = 257, 16 x 64) in bfloat16 and float32, a ragged
                 float32 case, ViT-H's head width 80 and CuTR's global shape
-                (T = 1024).
+                (T = 1024); tiled_attention at CuTR's global blocks (12 x 1024
+                and 12 x 4096, D = 64) and two ragged lengths, float32 and
+                bfloat16.
+  2b. ablation -- the path that runs tiled_attention
+                (boxfusion_tpu_torch/tools/attention_ablation.py): at the two
+                global-block shapes, milliseconds of the exact two-sweep
+                kernel, of whole_seq_attention (online softmax) on the same
+                data, of F.scaled_dot_product_attention and of the plain twin.
   3. main    -- the host engine's keyframe path end to end, twice, on a
                 synthetic 512x384 sequence, every frame a keyframe:
                 (a) CuTR-768 RGB-D (random weights from a seed, bf16, class
@@ -35,7 +42,24 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 boxfusion_tpu_torch.cli.main(["synthetic", "--config", ...])
                 with config/ca1m.yaml's output_dir pointed at a temporary
                 directory; it must return 0 and write a readable
-                framewise_boxes.pkl.
+                framewise_boxes.pkl.  Then the same with --engine device
+                --capacity 48: returns 0 and prints the world-box count.
+  6. device oracle -- the sequence of phase 4 through DevicePipeline (state
+                on the card) under engine "loops" and again under "unrolled":
+                every ground-truth box within 0.15 m, at least one fused, no
+                dropped or truncated count, the two engines' worlds equal
+                (integers exact, floats 1e-6); milliseconds and host reads
+                per keyframe of each.  Then save_state at the middle of a run,
+                restore_state into a fresh pipeline, and the resumed world
+                equal to the uninterrupted one.
+  7. device main -- phase 3's configuration through
+                CuTRDetector(device_output=True) -> DevicePipeline(capacity
+                2048), unlabelled and then labelled by CLIP ViT-L/14 through
+                label_boost_device (label budget 128: no row unlabelled), with
+                keyframes/s, host reads per keyframe and the kernels' launch
+                counts, zeroed just before each run and read just after; then
+                one more unlabelled run with a synchronise around every stage
+                of the step, for the stage split only.
 
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
@@ -296,8 +320,110 @@ def check_attention(device) -> dict:
     return main
 
 
+# tiled_attention cases: (BH, N), D = 64.  The first two are CuTR's global
+# blocks (12 heads; N = (S / 16)^2 at 512 px and at 1024 px) and are the
+# ablation's shapes; the last two are ragged against the 64-row tiles.
+TILED_CASES = ((12, 1024), (12, 4096), (4, 320), (4, 576))
+TILED_HEAD_DIM = 64
+TILED_F32_TOL = 2e-4  # rtol = atol, the JAX package's bound for its kernel (tests/test_ops.py:31)
+
+
+def tiled_case(device, bh: int, n: int, dtype, seed: int = 0):
+    """Unit-variance (BH, N, 64) q, k, v from a seeded generator."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(bh, n, TILED_HEAD_DIM, generator=gen, device=device).to(dtype)
+                 for _ in range(3))
+
+
+def check_tiled_attention(device) -> dict:
+    """tiled_attention against reference_attention at every case, in float32
+    and bfloat16; returns the kernel's record at (12, 1024) float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from boxfusion_tpu_torch.tools.attention_ablation import reference_attention, tiled_attention
+
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = ((TILED_F32_TOL, TILED_F32_TOL) if dtype == torch.float32
+                      else attention_tolerance(dtype))
+        for bh, n in TILED_CASES:
+            q, k, v = tiled_case(device, bh, n, dtype)
+            got = tiled_attention(q, k, v)
+            want = reference_attention(q, k, v)
+            torch.cuda.synchronize()
+            if got.dtype != q.dtype or got.shape != q.shape or not torch.isfinite(got).all():
+                raise RuntimeError(f"tiled_attention[{bh}x{n} {dtype}]: bad dtype, shape or non-finite")
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if float((diff - (atol + rtol * want.float().abs())).max()) > 0:
+                raise RuntimeError(f"tiled_attention[{bh}x{n} {dtype}] disagrees with its plain twin: "
+                                   f"max |diff| {err} beyond atol {atol} + rtol {rtol}")
+            rec = dict(phase="kernels", name="tiled_attention", BH=bh, N=n, head_dim=TILED_HEAD_DIM,
+                       dtype=str(dtype).replace("torch.", ""), max_abs_err=err, atol=atol, rtol=rtol)
+            if main is None:  # (12, 1024) float32: the shape the record is kept at
+                ms = cuda_ms(lambda: tiled_attention(q, k, v), reps=50, warmup=5)
+                plain_ms = cuda_ms(lambda: reference_attention(q, k, v), reps=10, warmup=2)
+                # yardstick only: the package never calls it
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+                                     reps=50, warmup=5)
+                ops = 4 * bh * n * n * TILED_HEAD_DIM        # QK^T and PV once each, 2 per multiply-add
+                n_bytes = 4 * bh * n * TILED_HEAD_DIM * q.element_size()
+                t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+                main = dict(
+                    name="tiled_attention", route="cuda",
+                    source="boxfusion_tpu_torch/csrc/tiled_attention_kernel.cu",
+                    replaces="tools/pallas_attention_ablation.py:103",
+                    operations=ops, bytes=n_bytes, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms,
+                )
+                rec.update(main)
+            print(json.dumps(rec))
+    return main
+
+
 def phase_kernels(device) -> list:
-    return [check_fitness(device), check_attention(device)]
+    return [check_fitness(device), check_attention(device), check_tiled_attention(device)]
+
+
+def phase_ablation(device) -> dict:
+    """The attention ablation (boxfusion_tpu_torch/tools/attention_ablation.py):
+    at CuTR's two global-block shapes, milliseconds of tiled_attention (exact
+    two-sweep softmax), whole_seq_attention on the same data with heads = 1
+    (online softmax), F.scaled_dot_product_attention and the plain twin.
+    Returns tiled_attention's launch count over the phase."""
+    import torch
+    import torch.nn.functional as F
+
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.tools.attention_ablation import reference_attention, tiled_attention
+
+    tiled_attention.launches = 0
+    for bh, n in TILED_CASES[:2]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = tiled_case(device, bh, n, dtype)
+            scale = TILED_HEAD_DIM ** -0.5
+            reps = 20 if n <= 1024 else 5
+            cols = dict(
+                tiled_attention_ms=cuda_ms(lambda: tiled_attention(q, k, v), reps=reps),
+                whole_seq_attention_ms=cuda_ms(lambda: whole_seq_attention(q, k, v, 1, scale), reps=reps),
+                sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+                                reps=reps),
+                plain_ms=cuda_ms(lambda: reference_attention(q, k, v), reps=max(reps // 4, 2), warmup=1),
+            )
+            same = float((tiled_attention(q, k, v).float()
+                          - whole_seq_attention(q, k, v, 1, scale).float()).abs().max())
+            print(json.dumps(dict(phase="ablation", BH=bh, N=n, head_dim=TILED_HEAD_DIM,
+                                  dtype=str(dtype).replace("torch.", ""),
+                                  two_sweep_vs_online_max_abs_diff=same, **cols)))
+    torch.cuda.synchronize()
+    launches = tiled_attention.launches
+    if launches <= 0:
+        raise RuntimeError("ablation: tiled_attention was never launched")
+    return {"tiled_attention": launches}
 
 
 # --------------------------------------------------------------------- phase 3
@@ -502,6 +628,271 @@ def phase_cli(extra_args=()) -> dict:
     print(json.dumps(rec))
     if corners.shape[1:] != (8, 3) or len(corners) < 6 or not np.isfinite(corners).all():
         raise RuntimeError(f"cli: framewise_boxes.pkl holds corners of shape {corners.shape}")
+
+    # the device engine through the same entry point
+    import contextlib
+    import io
+
+    with open(os.path.join(HERE, "config/ca1m.yaml")) as f:
+        raw = yaml.safe_load(f)
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw["data"]["output_dir"] = os.path.join(tmp, "results")
+        cfg_path = os.path.join(tmp, "ca1m.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(raw, f)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["synthetic", "--config", cfg_path, "--engine", "device",
+                           "--capacity", "48", *extra_args])
+        seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.getvalue().splitlines() if "device engine:" in ln]
+    dev = dict(phase="cli", engine="device", rc=rc, seconds=seconds, printed=lines)
+    print(json.dumps(dev))
+    if rc != 0 or lines != ["[cli] device engine: 6 world boxes"]:
+        raise RuntimeError(f"cli --engine device: rc {rc}, printed {lines}")
+    return rec
+
+
+# --------------------------------------------------------------------- phase 6
+def _oracle_config(engine: str):
+    from boxfusion_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(HERE, "config/ca1m.yaml"))
+    cfg["box_fusion"]._data["pst_path"] = None  # the CLI's synthetic fallback
+    cfg["association"]._data["engine"] = engine
+    return cfg
+
+
+def _worlds_equal(a: dict, b: dict, what: str) -> None:
+    """Integer fields exact, floats within 1e-6 (tests/test_unrolled_engine.py:47-53)."""
+    import numpy as np
+
+    for k in ("init_id", "fusion_flag", "valid_num", "category", "frame_id"):
+        if not np.array_equal(a[k], b[k]):
+            raise RuntimeError(f"{what}: {k} differs: {a[k]} vs {b[k]}")
+    if a["fusion_list"] != b["fusion_list"] or a["stats"] != b["stats"]:
+        raise RuntimeError(f"{what}: fusion lists or stats differ")
+    for k in ("xyzlhw", "R", "scores"):
+        err = float(np.abs(a[k] - b[k]).max()) if len(a[k]) else 0.0
+        if not err <= 1e-6:
+            raise RuntimeError(f"{what}: {k} differs by {err}")
+
+
+def run_device_oracle(device, engine: str, n_frames=60, n_boxes=6, noise=0.02):
+    """Phase 4's sequence through DevicePipeline; returns (record, world)."""
+    import numpy as np
+
+    from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
+    from boxfusion_tpu_torch.runtime import DevicePipeline
+
+    seq = SyntheticSequence(n_frames=n_frames, n_boxes=n_boxes)
+    pipe = DevicePipeline(_oracle_config(engine), OracleDetector(seq, noise=noise), capacity=512,
+                          device=device)
+    pipe.run(seq, export=False)  # first pass: allocator and library warm-up
+    pipe.reset()
+    pipe.detector = OracleDetector(seq, noise=noise)
+    t0 = time.perf_counter()
+    world = pipe.run(seq)
+    seconds = time.perf_counter() - t0
+    st = world["stats"]
+    d = np.linalg.norm(world["xyzlhw"][:, None, :3] - seq.gt_xyzlhw[None, :, :3], axis=-1)
+    rec = dict(phase="device_oracle", engine=engine, world_boxes=len(world["scores"]),
+               gt_boxes=n_boxes, max_gt_match_m=float(d.min(0).max()),
+               fused_boxes=int(world["fusion_flag"].sum()), keyframes=st["keyframes"],
+               ms_per_keyframe=1e3 * seconds / st["keyframes"],
+               step_ms_per_keyframe=1e3 * pipe.timings["step"] / st["keyframes"],
+               host_reads_per_keyframe=pipe.host_reads / st["keyframes"], stats=st)
+    print(json.dumps(rec))
+    if not rec["max_gt_match_m"] < 0.15:
+        raise RuntimeError(f"device oracle [{engine}]: a GT box is {rec['max_gt_match_m']:.3f} m away")
+    if rec["fused_boxes"] < 1:
+        raise RuntimeError(f"device oracle [{engine}]: no box was fused")
+    bad = {k: v for k, v in st.items() if k != "keyframes" and v}
+    if bad:
+        raise RuntimeError(f"device oracle [{engine}]: dropped or truncated counts {bad}")
+    if (engine == "unrolled") != (pipe.host_reads == 0):
+        raise RuntimeError(f"device oracle [{engine}]: {pipe.host_reads} host reads")
+    return rec, world
+
+
+def run_snapshot_round_trip(device, n_frames=60, cut=40, noise=0.02) -> dict:
+    """save_state after `cut` frames, restore_state into a fresh pipeline, run
+    on: the world of the run that was never interrupted."""
+    from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
+    from boxfusion_tpu_torch.runtime import DevicePipeline
+
+    seq = SyntheticSequence(n_frames=n_frames, n_boxes=6)
+    frames = list(seq)
+    cfg = _oracle_config("loops")
+    gap = int(cfg["data"]["gap"])
+    straight = DevicePipeline(cfg, OracleDetector(seq, noise=noise), capacity=512, device=device).run(frames)
+
+    det = OracleDetector(seq, noise=noise)  # one noise stream across the cut
+    first = DevicePipeline(cfg, det, capacity=512, device=device)
+    for frame in frames[:cut]:
+        if first.count % gap == 0:
+            first.process_keyframe(frame)
+        first.count += 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        first.save_state(path)
+        n_bytes = os.path.getsize(path)
+        second = DevicePipeline(cfg, det, capacity=512, device=device)
+        second.restore_state(path, count=first.count)
+    resumed = second.run(frames[cut:])
+    _worlds_equal(resumed, straight, "snapshot round trip")
+    rec = dict(phase="device_snapshot", cut_frame=cut, snapshot_bytes=n_bytes,
+               keyframes_before=int(first.state.stats[3]), world_boxes=len(resumed["scores"]),
+               fused_boxes=int(resumed["fusion_flag"].sum()), equal_to_uninterrupted=True)
+    print(json.dumps(rec))
+    return rec
+
+
+def phase_device_oracle(device) -> None:
+    loops, w_loops = run_device_oracle(device, "loops")
+    unrolled, w_unrolled = run_device_oracle(device, "unrolled")
+    _worlds_equal(w_loops, w_unrolled, "loops vs unrolled")
+    print(json.dumps(dict(phase="device_oracle", engines_equal=True,
+                          unrolled_over_loops=unrolled["ms_per_keyframe"] / loops["ms_per_keyframe"])))
+    run_snapshot_round_trip(device)
+
+
+# --------------------------------------------------------------------- phase 7
+STEP_STAGES = ("_append_detections", "_gated_iou_rows", "_nms_greedy", "_nms_greedy_unrolled",
+               "_correspondence", "_correspondence_unrolled", "_compact", "_fuse_device")
+
+
+class StageClock:
+    """Host-clock seconds per stage of the keyframe step, each stage wrapped
+    in a synchronise.  The syncs cost time themselves: used for one extra run
+    that reports the split and no rate.  _gated_iou_rows runs inside
+    _fuse_device too; its own entry counts both calls."""
+
+    def __init__(self):
+        self.seconds, self.saved = {}, {}
+
+    def __enter__(self):
+        import torch
+
+        from boxfusion_tpu_torch.runtime import device_step
+
+        sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+        for name in STEP_STAGES:
+            fn = self.saved[name] = getattr(device_step, name)
+
+            def timed(*args, _fn=fn, _name=name, **kw):
+                sync()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                sync()
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + time.perf_counter() - t0
+                return out
+
+            setattr(device_step, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from boxfusion_tpu_torch.runtime import device_step
+
+        for name, fn in self.saved.items():
+            setattr(device_step, name, fn)
+
+
+def run_device_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(384, 512), kernels=(),
+                         label=False, clip_cfg=None, capacity=2048, engine="loops", stage_clock=False):
+    """Drive DevicePipeline + CuTRDetector(device_output=True) once, with or
+    without the CLIP labeler (label_boost_device); returns (record, pipeline)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from boxfusion_tpu_torch.data.synthetic import SyntheticSequence
+    from boxfusion_tpu_torch.models.cutr import make_cutr
+    from boxfusion_tpu_torch.runtime import CuTRDetector, DevicePipeline
+
+    cfg = main_path_config()
+    cfg["association"]._data["engine"] = engine
+    # the device path labels a fixed budget of rows; 128 covers the detector's
+    # top-100, so no row is left unlabelled (the host engine labels every row)
+    cfg["detection"]._data["max_label_boxes"] = 128
+    model = make_cutr(dimension, depth_model=True, device=device, seed=0,
+                      dtype=cfg["detection"]["compute_dtype"])
+    lift_class_bias(model)
+    seq = SyntheticSequence(n_frames=n_frames, n_boxes=8, image_hw=image_hw, seed=0)
+    frames = list(seq)  # synthesis is not pipeline work
+    labeler = None
+    if label:
+        cfg["box_fusion"]._data["clip_sim_coeff"] = 1.0  # config/cubicle.yaml
+        labeler = make_labeler(device, clip_cfg)
+    detector = CuTRDetector(model, device=device, device_output=True, export_image=label)
+    pipe = DevicePipeline(cfg, detector, labeler=labeler, capacity=capacity, device=device)
+    detector(frames[0])  # warm the detector on frame 0, as the host engine's run does
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    for k in kernels:
+        k.launches = 0
+    clock = StageClock() if stage_clock else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with clock:
+        world = pipe.run(frames, gap=gap)
+    seconds = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+
+    st = world["stats"]
+    n_kf = st["keyframes"]
+    if len(world["scores"]) == 0 or not np.isfinite(world["xyzlhw"]).all():
+        raise RuntimeError(f"device main path: world has {len(world['scores'])} boxes or is not finite")
+    if st["dropped_world_capacity"] or st["dropped_obs_capacity"] or st["label_overflow"]:
+        raise RuntimeError(f"device main path: dropped or unlabelled rows: {st}")
+    if label and not set(world["categories"]) - {""}:
+        raise RuntimeError("device main path: the world rows carry no CLIP labels")
+    rec = dict(
+        phase="device_main", labelled=bool(label), engine=engine, cutr_width=dimension,
+        dtype=str(cfg["detection"]["compute_dtype"]), capacity=capacity,
+        frames=n_frames, gap=gap, keyframes=n_kf, seconds=seconds, keyframes_per_s=n_kf / seconds,
+        ms_per_keyframe=1e3 * seconds / n_kf, host_reads_per_keyframe=pipe.host_reads / n_kf,
+        stage_ms_per_keyframe={k: 1e3 * v / n_kf for k, v in sorted(pipe.timings.items())},
+        world_boxes=len(world["scores"]), observations=int(pipe.state.obs_n),
+        fused_boxes=int(world["fusion_flag"].sum()), launches=launches, stats=st,
+    )
+    if label:
+        rec["classes_in_world"] = len(set(world["categories"]))
+    if stage_clock:
+        rec["phase"] = "device_main_stage_split"
+        rec["synced_step_stage_ms_per_keyframe"] = {k: 1e3 * v / n_kf for k, v in sorted(clock.seconds.items())}
+        for k in ("seconds", "keyframes_per_s", "ms_per_keyframe"):
+            del rec[k]  # the synchronises are in them
+    return rec, pipe
+
+
+def phase_device_main(device) -> dict:
+    """Unlabelled, labelled, then the synced stage split; returns the launch
+    counts of the labelled run."""
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
+
+    kernels = (fitness_cells, whole_seq_attention, tiled_attention)
+    plain, _ = run_device_main_path(device, kernels=kernels)
+    print(json.dumps(plain))
+    if plain["launches"]["fitness_cells"] <= 0:
+        raise RuntimeError("device main path: fitness_cells was never launched")
+    if plain["launches"]["whole_seq_attention"] != 0:
+        raise RuntimeError("device main path without a labeler launched whole_seq_attention")
+
+    rec, _ = run_device_main_path(device, kernels=kernels, label=True)
+    print(json.dumps(rec))
+    for name in ("fitness_cells", "whole_seq_attention"):
+        if rec["launches"][name] <= 0:
+            raise RuntimeError(f"labelled device main path: {name} was never launched")
+    if rec["launches"]["whole_seq_attention"] != 24 * rec["keyframes"]:
+        raise RuntimeError("labelled device main path: not one attention launch per tower block")
+
+    split, _ = run_device_main_path(device, stage_clock=True)
+    print(json.dumps(split))
     return rec
 
 
@@ -527,17 +918,27 @@ def main() -> int:
     phase_build()
     log("phase 2: kernels against their plain twins")
     krecs = phase_kernels(device)
+    log("phase 2b: the attention ablation (the path of tiled_attention)")
+    launches = phase_ablation(device)
     log("phase 3: main path (CuTR-768 -> [CLIP ViT-L/14 labels] -> association -> PST fusion)")
     mrec = phase_main(device)
     log("phase 4: known-answer fusion (oracle)")
     phase_oracle(device)
-    log("phase 5: the command-line entry point")
+    log("phase 5: the command-line entry point, host and device engines")
     phase_cli()
+    log("phase 6: device engine, known answer under loops and unrolled; snapshot round trip")
+    phase_device_oracle(device)
+    log("phase 7: device engine, main path at full width, without and with labels")
+    drec = phase_device_main(device)
 
+    # launches: each kernel's count over the main path that runs it -- the
+    # labelled host-engine run plus the labelled device-engine run for the
+    # first two, the ablation for the third
+    for name in ("fitness_cells", "whole_seq_attention"):
+        launches[name] = mrec["launches"][name] + drec["launches"][name]
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    kernels = [{**{k: rec[k] for k in keys}, "launches": mrec["launches"][rec["name"]]}
-               for rec in krecs]
+    kernels = [{**{k: rec[k] for k in keys}, "launches": launches[rec["name"]]} for rec in krecs]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

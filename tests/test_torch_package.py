@@ -4,7 +4,8 @@ This file imports torch and the port only -- no JAX -- so that its card
 tests (marker ``cuda``) also run on a GPU machine that has no JAX (the
 suite's conftest.py imports JAX, hence --noconftest):
 
-    python -m pytest --noconftest -m cuda tests/test_torch_package.py
+    python -m pytest --noconftest -m cuda tests/test_torch_package.py \
+        tests/test_torch_tiled_attention.py
 
 On a machine without a card they skip.
 """
@@ -45,10 +46,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                          timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 43 and res["bad"] == [], res
+    assert res["n"] >= 49 and res["bad"] == [], res
     mods = _all_modules()
     for new in ("cli", "utils.io", "ops.attention_kernel", "models.clip.model",
-                "models.clip.head", "models.clip.convert", "models.clip.text"):
+                "models.clip.head", "models.clip.convert", "models.clip.text",
+                "runtime.device_state", "runtime.device_step", "runtime.device_pipeline",
+                "utils.checkpoint", "tools.attention_ablation"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 
@@ -75,6 +78,42 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                        np.zeros((1, 2, 8, 2)), np.ones((1, 2)), np.ones(1, bool), np.eye(3), 10.0, 10.0)
 
 
+def test_device_engine_entry_points_raise_without_a_card(tmp_path):
+    """The device engine's entry points take the same rule: DevicePipeline,
+    init_state and restore_pipeline_state want a card unless told "cpu".  The
+    kernel wrapper is steered by where its tensors lie, as the other two are:
+    a CPU tensor runs the plain twin (and counts no launch), a tensor on any
+    other non-CUDA device is refused -- nothing carries on quietly."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
+    from boxfusion_tpu_torch.runtime import DevicePipeline
+    from boxfusion_tpu_torch.runtime.device_state import init_state
+    from boxfusion_tpu_torch.tools.attention_ablation import reference_attention, tiled_attention
+    from boxfusion_tpu_torch.utils.checkpoint import restore_pipeline_state, save_pipeline_state
+    from boxfusion_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config/ca1m.yaml"))
+    cfg["box_fusion"]._data["pst_path"] = None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevicePipeline(cfg, OracleDetector(SyntheticSequence(n_frames=2)), capacity=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(8, 5, 16)
+    save_pipeline_state(str(tmp_path / "s.pt"), init_state(8, 5, 16, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_pipeline_state(str(tmp_path / "s.pt"))
+
+    q, k, v = torch.randn(3, 2, 70, 64, generator=torch.Generator().manual_seed(0)).unbind(0)
+    before = tiled_attention.launches
+    torch.testing.assert_close(tiled_attention(q, k, v), reference_attention(q, k, v))
+    assert tiled_attention.launches == before
+    m = torch.zeros(2, 70, 64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tiled_attention(m, m, m)
+    with pytest.raises(ValueError, match="head width"):
+        tiled_attention(q[..., :24], k[..., :24], v[..., :24])
+
+
 def test_kernel_build_is_keyed_by_source_and_flags():
     from boxfusion_tpu_torch.ops import build
 
@@ -95,6 +134,10 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert "use_fast_math" not in attn and set(build.NVCC_FLAGS) == set(build.SOURCES)
     assert build.library_path("attention_kernel").name.startswith("libattention_kernel-")
     assert (build.CSRC_DIR / build.SOURCES["attention_kernel"]).exists()
+    tiled = " ".join(build.NVCC_FLAGS["tiled_attention_kernel"])
+    assert "arch=compute_90a,code=sm_90a" in tiled and "fmad" not in tiled
+    assert "use_fast_math" not in tiled
+    assert (build.CSRC_DIR / build.SOURCES["tiled_attention_kernel"]).exists()
 
 
 def test_wrapper_rejects_unsupported_devices():
