@@ -15,17 +15,13 @@
 // What differs from the TPU kernel, and why.  The Pallas body keeps one whole
 // padded sequence with all its heads in fast memory and walks the heads in a
 // loop, one grid cell per sequence.  A block here has at most 227 KB of
-// shared memory and the card has 132 SMs, so the work is cut into
-// (sequence, head, 64-query tile) blocks: grid (ceil(T / 64), heads, B).
-// Each block walks the keys in tiles of 64 with a running row maximum m and
-// row sum l (the "online" softmax), so T is not bounded by shared memory: the
-// CLIP label batch (T = 257) and CuTR's global blocks (T = 1024) take the
-// same path.  Nothing is padded in device memory.  Rows past T in the last
-// query or key tile are filled with zeros in shared memory, their scores are
-// set to -1e30 (the Pallas body's mask value) before the softmax, and query
-// rows past T are not stored; the 257th token costs one row of memory traffic
-// and a tile of arithmetic (in the tensor-core kernel the warps of the last
-// query tile whose 16 rows all lie past T skip theirs).
+// shared memory and the card has 132 SMs, so the work is cut into blocks of
+// one (sequence, head) and a run of its query rows, and each block walks the
+// keys in tiles of 64 with a running row maximum m and row sum l (the
+// "online" softmax), so T is not bounded by shared memory: the CLIP label
+// batch (T = 257) and CuTR's global blocks (T = 1024) take the same path.
+// Nothing is padded in device memory: rows past T are zeros in shared memory,
+// their scores are masked before the softmax, and they are not stored.
 //
 // One rounding differs from the twin.  With key tiles the probabilities are
 // cast to v's type as exp(s - m_running), before the division by the row
@@ -37,21 +33,38 @@
 // Two kernels, one per input type:
 //  * attn_fma_kernel<HD>: float32 inputs, which must not go through TF32 (the
 //    contract is 1e-5): FMA loops from shared memory, 256 threads, thread
-//    (ty, tx) owns query rows 4ty..4ty+3 and strided columns tx + 16j.
-//  * attn_mma_kernel<HD>: bfloat16 inputs on the tensor cores through
-//    mma.sync.m16n8k16 (float32 accumulators), 4 warps, one warp per 16
-//    query rows; scores, softmax and probabilities stay in registers, V is
-//    read through ldmatrix.trans.  See the note above it.
+//    (ty, tx) owns query rows 4ty..4ty+3 and strided columns tx + 16j; grid
+//    (ceil(T / 64), heads, B).
+//  * attn_wgmma_kernel<HD>: bfloat16 inputs, both products on wgmma, fed by
+//    a ring of asynchronous copies.  See the note above it.
 //
 // What bounds it on this card: bytes.  At the main shape (B = 128, T = 257,
 // 16 heads x 64, bfloat16) the function moves 4*B*T*D*2 = 269 MB (0.080 ms at
 // 3.35 TB/s) and does 4*B*heads*T*T*hd = 34.6 GFLOP (0.035 ms at 989 TFLOP/s
-// bf16).  A head's K and V (33 KB each) are re-read by the 5 query tiles of
-// that head from L2, not from device memory.  Neither kernel uses wgmma, TMA
-// or an mbarrier pipeline, and a block's tile loads, products and softmax
-// are not overlapped: on an H100 (700 W) the tensor-core kernel takes 0.32 ms
-// at this shape, 4x its bound and 1.4x F.scaled_dot_product_attention, and
-// skipping 15% of its products moved its time by 2% -- it waits on loads.
+// bf16).  Its predecessor (one block of 4 warps per 64 query rows,
+// mma.sync.m16n8k16, synchronous 16-byte loads) took 0.316 ms there.  The
+// bfloat16 design answers what held it back:
+//  * loads never overlapped the products: K and V tiles now pass through a
+//    ring of shared-memory slots filled by cp.async, `stages - 1` pairs
+//    ahead of the one computed (5 slots at the main shape, 3 when K and V
+//    stream);
+//  * 20% of its blocks held one live query row (T = 257 = 4 x 64 + 1): the
+//    rows are now cut into ceil(T / 64) near-equal tiles (51-52 rows at
+//    T = 257), and a block of two warpgroups walks all five tiles of a
+//    (sequence, head), so no block or tile exists for the 257th row;
+//  * K and V were read five times from L2: where a head's K and V fit (T <=
+//    320 at hd <= 64) the block loads them once and keeps them;
+//  * the last key tile held one live key of 64: its 16-key chunks past T skip
+//    the exp and the second product;
+//  * both products ran on mma.sync: S = Q K^T and O = P V are now wgmma
+//    m64nNk16 with P handed over in registers.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// 0.274 ms at the main shape, 0.98 TB/s, against 0.232 ms for
+// F.scaled_dot_product_attention on the same inputs; 128 registers, 0
+// spills, 112 KiB of shared memory, 2 blocks per SM.  It is not at its
+// bound: each warpgroup runs its two products and its softmax one after the
+// other, and 2 blocks of 8 warps per SM (the 128-register, 112 KiB budget)
+// do not hide that.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (ops/build.py).  FMA
 // contraction is left on: the contract here is a tolerance, not bit equality.
@@ -237,11 +250,16 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Shared memory of one FMA block: Q, K, V tiles, the score tile, 3 row vectors.
+template <int HD>
+constexpr size_t fma_smem_bytes() {
+  return sizeof(float) * (3 * kBM * (HD + 4) + kBM * kLdS + 3 * kBM);
+}
+
 template <int HD>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out, int B, int n_tok,
                        int heads, const long long* st, float scale, cudaStream_t stream) {
-  constexpr int kLd = HD + 4;
-  const size_t smem = sizeof(float) * (3 * kBM * kLd + kBM * kLdS + 3 * kBM);
+  const size_t smem = fma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(attn_fma_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -264,228 +282,510 @@ cudaError_t dispatch_fma(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-// ------------------------------------------------------- tensor-core kernel
-// bfloat16 on mma.sync.m16n8k16 (float32 accumulators).  128 threads: warp w
-// owns query rows 16w..16w+15 of the block's 64.  In a warp, lane = 4g + t
-// holds, of every 16 x 8 accumulator tile, rows g and g + 8 at columns 2t and
-// 2t + 1.  So a score row lives in the 4 lanes of one quad: the row maximum
-// and sum are two xor-shuffles, and the probabilities, rounded to bfloat16 in
-// registers, are already laid out as the A operand of the second product (two
-// neighbouring 16 x 8 score tiles make one 16 x 16 A tile).  K is read as the
-// "col" B operand straight from its row-major tile (for one key, two
-// neighbouring channels are one 32-bit word); V needs the transposed access
-// and gets it from ldmatrix.trans.  Tile pitch HD + 8 bfloat16 keeps rows
-// 16-byte aligned and the fragment reads free of bank conflicts.
-constexpr int kMmaThreads = 128;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ----------------------------------------------------------- wgmma kernel
+// bfloat16 on the warpgroup tensor-core instruction wgmma.mma_async (float32
+// accumulators), fed by a ring of cp.async copies.  A block is two
+// warpgroups (256 threads) and one (sequence, head); it owns a run of that
+// head's query tiles and its warpgroups take them two at a time (a round),
+// each its own tile.  The wrapper's plan (ops/attention_kernel.py:plan_bf16)
+// cuts T into ceil(T / 64) near-equal query tiles (at T = 257: 51 or 52 rows,
+// each in one 64-row wgmma tile), so no tile exists for a few tail rows.
+//
+// The block walks a stream of (round, key tile) pairs; key tiles are 64 keys
+// and pass through `stages` slots of shared memory, filled by cp.async, one
+// commit group per pair, `stages - 1` pairs ahead of the one computed; one
+// barrier per pair, after which the slot of the pair before is refilled.
+// When the head's key tiles all fit (`stages` >= key tiles: T = 257 at hd 64
+// takes 5 slots, 112 KiB with the Q buffers) they are loaded once and every
+// round reuses them (K and V leave L2 once); otherwise a block owns two or
+// three query tiles and K and V stream through up to 3 slots.  Q tiles
+// alternate between two buffers per warpgroup, loaded with the first pair of
+// their round; a buffer also stages its tile's output for 16-byte stores.
+//
+// Per pair: S = Q K^T by wgmma m64n64k16 with Q's fragments in registers
+// (loaded once per query tile by ldmatrix) and K from shared memory; the
+// online softmax on the accumulators in registers, in base 2 with the scale
+// folded into one FFMA a score; O += P V by wgmma m64nHDk16 with P's
+// fragments in registers -- in the accumulator layout a warp holds rows
+// 16w..16w+15, lane = 4g + t rows g and g + 8 at columns 2t, 2t + 1 of every
+// 8 columns, which rounded to bfloat16 in pairs is already the A operand --
+// and V from shared memory read as MN-major (the descriptor's transpose bit),
+// so nothing is transposed by hand.  Shared tiles use the descriptors'
+// "interleaved" layout, [HD / 8][64 rows][8]: a core matrix (8 rows x 16
+// bytes) is 128 contiguous bytes, one layout for every head width (hd 80
+// needs no padding), and 16-byte cp.async chunks land in it directly.  A key
+// tile with keys past T masks them; its 16-key chunks wholly past T are
+// skipped in the second product.
+constexpr int kTile = 64;         // query rows per wgmma tile and keys per ring slot
+constexpr int kWgThreads = 128;   // one warpgroup
+constexpr int kWgs = 2;           // warpgroups a block: each its own query tile, K and V shared
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// Rows [row0, row0 + 64) of one head's (T, HD) block -> bfloat16 shared
-// memory [64][HD + 8]; rows past T become zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile_bf16(const __nv_bfloat16* __restrict__ src,
-                                               long long row_stride, int row0, int n_rows,
-                                               __nv_bfloat16* __restrict__ dst) {
-  constexpr int kChunks = HD / 8;
-  constexpr int kLd = HD + 8;
-  for (int idx = threadIdx.x; idx < kBM * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      raw = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = raw;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes global -> shared, asynchronously; with live = false nothing is read
+// and the 16 bytes become zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most n of this thread's commit groups are pending (n < 4).
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int n_tok,
-                long long q_sb, long long q_sr, long long k_sb, long long k_sr, long long v_sb,
-                long long v_sr, long long o_sb, long long o_sr, float scale) {
-  constexpr int kLd = HD + 8;
-  constexpr int kKc = HD / 16;  // 16-channel chunks of the first product
-  constexpr int kNt = HD / 8;   // 8-column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][kLd]; output staging
-  __nv_bfloat16* Ks = Qs + kBM * kLd;
-  __nv_bfloat16* Vs = Ks + kBN * kLd;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBM, head = blockIdx.y, b = blockIdx.z;
+// Keeps the compiler from moving accesses of wgmma's registers across the
+// asynchronous region.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A shared-memory matrix descriptor of the interleaved layout (no swizzle):
+// start address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// Rows [row0, row0 + 64) of one head's (T, HD) block -> a shared tile
+// [HD / 8][64][8], by cp.async; rows at or past row_end become zeros.  Two
+// neighbouring threads copy the two halves of one 32-byte sector of a row.
+template <int HD>
+__device__ __forceinline__ void copy_tile(const __nv_bfloat16* __restrict__ src, long long row_stride,
+                                          int row0, int row_end, __nv_bfloat16* dst) {
+  constexpr int kChunks = HD / 8;  // even for every head width
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kWgs * kWgThreads) {
+    const int p = idx >> 1, r = p % kTile, c = 2 * (p / kTile) + (idx & 1);
+    const bool live = row0 + r < row_end;
+    cp_async16(smem_addr(dst + (c * kTile + r) * 8),
+               src + (live ? (long long)(row0 + r) * row_stride + c * 8 : 0), live);
+  }
+}
+
+// wgmma.mma_async m64nNk16, bf16 inputs, float32 accumulators, A from registers
+// (the m16n8k16 A fragments of the warpgroup's four warps, rows 16w..16w+15),
+// B through a shared-memory descriptor; kTransB = 1 reads B as MN-major.
+// d: the N/2 accumulators of this thread; scale_d = 0 overwrites them.
+template <int N, int kTransB> struct WgmmaRS;
+template <> struct WgmmaRS<64, 0> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<16, 1> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<32, 1> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<64, 1> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<80, 1> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<128, 1> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// One (query tile, key tile) pair for the warpgroup: scores, online softmax,
+// o = o * alpha + p v.  Ks, Vs: the slot's tiles.  kPartial: only n_live < 64
+// keys of the tile lie before T; they are masked, and the 16-key chunks
+// wholly past T are left out of the second product.
+template <int HD, bool kPartial>
+__device__ __forceinline__ void pair_body(const __nv_bfloat16* Ks, const __nv_bfloat16* Vs, int n_live,
+                                          uint32_t (&qf)[HD / 16][4], float (&oacc)[HD / 2],
+                                          float (&m_run)[2], float (&l_run)[2], float scale_log2,
+                                          int lane) {
+  constexpr int kKc = HD / 16;
+  const int t = lane & 3;
+  const int live16 = kPartial ? (n_live + 15) >> 4 : kTile / 16;
+
+  // S = Q K^T: K is the K-major B operand, [HD / 8][64 keys][8]: core
+  // matrices 16 bytes apart along the keys (8 of them = 128 bytes, the stride
+  // offset), 1024 bytes apart along the channels (the leading offset)
+  float sacc[kTile / 2];
+  fence_regs(sacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < kKc; ++kc)
+    WgmmaRS<kTile, 0>::mma(sacc, qf[kc], smem_desc(Ks + kc * 2 * kTile * 8, kTile * 16, 128), kc > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(sacc);
+
+  // running maximum of the raw scores (scale_log2 >= 0: for a negative
+  // scale the kernel negates Q instead), masked keys left out; then
+  // p = 2^(c s - c max) with c = scale * log2 e, one FFMA and one exp a score.
+  // sacc[4j + e]: row g + 8 (e >> 1), key 8j + 2t + (e & 1).
+  float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    if (kPartial && (j >> 1) >= live16) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float s = sacc[4 * j + e];
+      if (kPartial && j * 8 + 2 * t + (e & 1) >= n_live) s = -INFINITY;
+      tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s);
+    }
+  }
+  float alpha[2], m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+    m_new[r] = fmaxf(m_run[r], tile_max[r] * scale_log2);  // in units of log2; finite: a tile has a live key
+    alpha[r] = ex2(m_run[r] - m_new[r]);  // 0 on the first tile
+    m_run[r] = m_new[r];
+  }
+
+  // probabilities, rounded to bfloat16 in pairs: the A fragments of the
+  // second product (16 keys a fragment); l keeps this thread's partial row
+  // sums (the quad adds them at the end)
+  uint32_t pf[kTile / 16][4];
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    if (kPartial && (j >> 1) >= live16) continue;
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = ex2(fmaf(sacc[4 * j + e], scale_log2, -m_new[e >> 1]));
+      if (kPartial && j * 8 + 2 * t + (e & 1) >= n_live) p[e] = 0.f;
+    }
+    sum[0] += p[0] + p[1];
+    sum[1] += p[2] + p[3];
+    pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    oacc[4 * j + 0] *= alpha[0];
+    oacc[4 * j + 1] *= alpha[0];
+    oacc[4 * j + 2] *= alpha[1];
+    oacc[4 * j + 3] *= alpha[1];
+  }
+
+  // O += P V: V is the MN-major B operand (keys along K, channels along N):
+  // core matrices 16 bytes apart along the keys (8 keys = 128 bytes, the
+  // leading offset), 1024 bytes apart along the channels (the stride offset);
+  // 16 keys a step
+  fence_regs(oacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    if (kPartial && kk >= live16) continue;  // uniform over the block
+    WgmmaRS<HD, 1>::mma(oacc, pf[kk], smem_desc(Vs + kk * 16 * 8, 128, kTile * 16), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(oacc);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgs * kWgThreads, HD <= 80 ? 2 : 1)
+attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int n_tok,
+                  int n_qtiles, int n_groups, int stages, long long q_sb, long long q_sr, long long k_sb,
+                  long long k_sr, long long v_sb, long long v_sr, long long o_sb, long long o_sr,
+                  float scale_log2) {
+  constexpr int kKc = HD / 16;
+  constexpr int kChunks = HD / 8;
+  constexpr int kTileElems = kTile * HD;  // one [HD / 8][64][8] tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kWgs][tile]
+  __nv_bfloat16* ring = Qbuf + 2 * kWgs * kTileElems;                 // [stages][K, V][tile]
+
+  const int wg = threadIdx.x / kWgThreads, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int n_kt = (n_tok + kTile - 1) / kTile;
+  // this block's query tiles [t0, t1), kWgs to a round (one per warpgroup);
+  // tile i holds rows [i T / n_qtiles, (i + 1) T / n_qtiles)
+  const int t0 = (int)((long long)blockIdx.x * n_qtiles / n_groups);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * n_qtiles / n_groups);
+  const bool resident = n_kt <= stages;  // K, V loaded once; key tile j stays in slot j
+  const int n_stream = (t1 - t0 + kWgs - 1) / kWgs * n_kt;  // (round, key tile) pairs
   const __nv_bfloat16* qp = q + b * q_sb + head * HD;
   const __nv_bfloat16* kp = k + b * k_sb + head * HD;
   const __nv_bfloat16* vp = v + b * v_sb + head * HD;
+  auto rows_of = [&](int qt, int& q0, int& q1) {
+    q0 = (int)((long long)qt * n_tok / n_qtiles);
+    q1 = (int)((long long)(qt + 1) * n_tok / n_qtiles);
+  };
 
-  load_tile_bf16<HD>(qp, q_sr, q0, n_tok, Qs);
-  __syncthreads();
+  // the next pair to load: its index, round, key tile, slot
+  int lu = 0, lr = 0, ljt = 0, lslot = 0;
+  auto load_next = [&]() {
+    if (lu < n_stream) {
+      if (ljt == 0) {
+        for (int w = 0; w < kWgs; ++w) {
+          const int qt = t0 + lr * kWgs + w;
+          if (qt >= t1) break;
+          int q0, q1;
+          rows_of(qt, q0, q1);
+          copy_tile<HD>(qp + (long long)q0 * q_sr, q_sr, 0, q1 - q0, Qbuf + ((lr & 1) * kWgs + w) * kTileElems);
+        }
+      }
+      if (!resident || lr == 0) {
+        __nv_bfloat16* Ks = ring + (resident ? ljt : lslot) * 2 * kTileElems;
+        copy_tile<HD>(kp, k_sr, ljt * kTile, n_tok, Ks);
+        copy_tile<HD>(vp, v_sr, ljt * kTile, n_tok, Ks + kTileElems);
+      }
+    }
+    cp_async_commit();  // one group per pair, empty ones included: the count stays uniform
+    ++lu;
+    if (++lslot == stages) lslot = 0;
+    if (++ljt == n_kt) ljt = 0, ++lr;
+  };
+  for (int p = 0; p < stages - 1; ++p) load_next();
+
+  // softmax(c s) with c = scale log2 e; a negative c becomes -c and -Q
+  const float c_log2 = fabsf(scale_log2);
+  const uint32_t q_sign = scale_log2 < 0.f ? 0x80008000u : 0u;
   uint32_t qf[kKc][4];
-  {
-    const __nv_bfloat16* row_lo = Qs + (warp * 16 + g) * kLd + 2 * t;
-    const __nv_bfloat16* row_hi = row_lo + 8 * kLd;
+  float oacc[HD / 2];
+  float m_run[2], l_run[2];  // rows g and g + 8: running maximum (in units of log2), partial sum
+  int r = 0, jt = 0, slot = 0;
+  for (int s = 0; s < n_stream; ++s) {
+    cp_async_wait(stages - 2);  // this thread's copies of pair s have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();  // everyone's have; everyone is done with pair s - 1
+    load_next();      // pair s + stages - 1, into the slot of pair s - 1
+    const int qt = t0 + r * kWgs + wg;
+    if (qt < t1) {  // uniform over the warpgroup: in a last round with fewer tiles, it idles
+      __nv_bfloat16* Qs = Qbuf + ((r & 1) * kWgs + wg) * kTileElems;
+      if (jt == 0) {
+        // Q's A fragments: warp w rows 16w..16w+15, ldmatrix.x4 per 16 channels
+        const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
 #pragma unroll
-    for (int kc = 0; kc < kKc; ++kc) {
-      qf[kc][0] = *reinterpret_cast<const uint32_t*>(row_lo + kc * 16);
-      qf[kc][1] = *reinterpret_cast<const uint32_t*>(row_hi + kc * 16);
-      qf[kc][2] = *reinterpret_cast<const uint32_t*>(row_lo + kc * 16 + 8);
-      qf[kc][3] = *reinterpret_cast<const uint32_t*>(row_hi + kc * 16 + 8);
-    }
-  }
-
-  float oacc[kNt][4];
+        for (int kc = 0; kc < kKc; ++kc) {
+          ldmatrix_x4(qf[kc], smem_addr(Qs + ((2 * kc + half) * kTile + row) * 8));
 #pragma unroll
-  for (int n = 0; n < kNt; ++n)
+          for (int i = 0; i < 4; ++i) qf[kc][i] ^= q_sign;  // -Q for a negative scale
+        }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  // In the last query tile a warp whose 16 rows all lie past T has nothing to
-  // compute (T = 257: three of the four warps).
-  const bool warp_live = q0 + warp * 16 < n_tok;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n_tok; k0 += kBN) {
-    __syncthreads();  // every warp is done with the previous K and V
-    load_tile_bf16<HD>(kp, k_sr, k0, n_tok, Ks);
-    load_tile_bf16<HD>(vp, v_sr, k0, n_tok, Vs);
-    __syncthreads();
-    if (!warp_live) continue;  // warp-uniform; the barriers above are still reached
-
-    // scores of 16 query rows x 64 keys
-    float sacc[kBN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < kKc; ++kc)
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n) {
-        const __nv_bfloat16* kr = Ks + (n * 8 + g) * kLd + kc * 16 + 2 * t;
-        mma_bf16(sacc[n], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+        m_run[0] = m_run[1] = -INFINITY;
+        l_run[0] = l_run[1] = 0.f;
       }
+      const __nv_bfloat16* Ks = ring + (resident ? jt : slot) * 2 * kTileElems;
+      const int n_live = n_tok - jt * kTile;
+      if (n_live >= kTile)
+        pair_body<HD, false>(Ks, Ks + kTileElems, n_live, qf, oacc, m_run, l_run, c_log2, lane);
+      else
+        pair_body<HD, true>(Ks, Ks + kTileElems, n_live, qf, oacc, m_run, l_run, c_log2, lane);
 
-    // scale, mask the ragged edge, running maximum
-    float tile_max[2] = {kMasked, kMasked};
+      if (jt == n_kt - 1) {
+        // the query tile is done: row sums over the quad, normalise; stage the
+        // warp's 16 rows in its own rows of the tile's Q buffer (Q is in
+        // registers; the buffer is refilled only after a later barrier, as the
+        // plan keeps stages <= key tiles + 1); 16-byte stores of the rows before q1
+        float inv[2];
 #pragma unroll
-    for (int n = 0; n < kBN / 8; ++n)
+        for (int i = 0; i < 2; ++i) {
+          float l = l_run[i];
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+          inv[i] = 1.f / l;
+        }
+        const int g = lane >> 2, t = lane & 3, r_lo = warp * 16 + g;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float s = (col < n_tok) ? sacc[n][e] * scale : kMasked;
-        sacc[n][e] = s;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s);
+        for (int j = 0; j < HD / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(Qs + (j * kTile + r_lo) * 8 + 2 * t) =
+              pack_bf16(oacc[4 * j + 0] * inv[0], oacc[4 * j + 1] * inv[0]);
+          *reinterpret_cast<uint32_t*>(Qs + (j * kTile + r_lo + 8) * 8 + 2 * t) =
+              pack_bf16(oacc[4 * j + 2] * inv[1], oacc[4 * j + 3] * inv[1]);
+        }
+        __syncwarp();
+        int q0, q1;
+        rows_of(qt, q0, q1);
+        __nv_bfloat16* op = out + b * o_sb + head * HD;
+        for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+          const int rr = idx / kChunks, c = idx % kChunks;
+          const int row = q0 + warp * 16 + rr;
+          if (row < q1)
+            *reinterpret_cast<uint4*>(op + (long long)row * o_sr + c * 8) =
+                *reinterpret_cast<const uint4*>(Qs + (c * kTile + warp * 16 + rr) * 8);
+        }
       }
-    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      m_new[r] = fmaxf(m_run[r], tile_max[r]);
-      alpha[r] = __expf(m_run[r] - m_new[r]);  // 0 on the first tile
-      m_run[r] = m_new[r];
     }
-
-    // probabilities, cast to bfloat16 in the A-operand layout of the second product
-    uint32_t pf[kBN / 16][4];
-#pragma unroll
-    for (int n = 0; n < kBN / 8; ++n) {
-      const float p0 = __expf(sacc[n][0] - m_new[0]);
-      const float p1 = __expf(sacc[n][1] - m_new[0]);
-      const float p2 = __expf(sacc[n][2] - m_new[1]);
-      const float p3 = __expf(sacc[n][3] - m_new[1]);
-      sum[0] += p0 + p1;
-      sum[1] += p2 + p3;
-      pf[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kNt; ++n) {
-      oacc[n][0] *= alpha[0];
-      oacc[n][1] *= alpha[0];
-      oacc[n][2] *= alpha[1];
-      oacc[n][3] *= alpha[1];
-    }
-
-    // o += p v: per 16 keys, two 8-column tiles of V per ldmatrix.x4.trans
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < kNt; n += 2) {
-        const __nv_bfloat16* vr = Vs + (kk * 16 + (lane & 15)) * kLd + (n + (lane >> 4)) * 8;
-        const uint32_t addr = (uint32_t)__cvta_generic_to_shared(vr);
-        uint32_t b0, b1, b2, b3;
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-                     : "r"(addr));
-        mma_bf16(oacc[n], pf[kk], b0, b1);
-        mma_bf16(oacc[n + 1], pf[kk], b2, b3);
-      }
+    if (++slot == stages) slot = 0;
+    if (++jt == n_kt) jt = 0, ++r;
   }
-
-  if (!warp_live) return;  // no barrier follows
-  // normalise; stage this warp's 16 rows in its own rows of Qs; 16-byte stores
-  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
-  __nv_bfloat16* stage = Qs + warp * 16 * kLd;
-#pragma unroll
-  for (int n = 0; n < kNt; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + g * kLd + n * 8 + 2 * t) =
-        pack_bf16(oacc[n][0] * inv[0], oacc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kLd + n * 8 + 2 * t) =
-        pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
-  }
-  __syncwarp();
-  __nv_bfloat16* op = out + b * o_sb + head * HD;
-  for (int idx = lane; idx < 16 * (HD / 8); idx += 32) {
-    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-    const int row = q0 + warp * 16 + r;
-    if (row < n_tok)
-      *reinterpret_cast<uint4*>(op + (long long)row * o_sr + c) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + c);
-  }
+  cp_async_wait(0);
 }
 
+// Shared memory of one block: two Q tiles per warpgroup and `stages` K, V slots.
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int n_tok,
-                       int heads, const long long* st, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * 3 * kBM * (HD + 8);
-  cudaError_t err = cudaFuncSetAttribute(attn_mma_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+size_t wgmma_smem_bytes(int stages) {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * kWgs + 2 * stages) * kTile * HD;
+}
+
+// plan = {n_qtiles, n_groups, stages, smem_bytes}, from
+// ops/attention_kernel.py:plan_bf16; refused (cudaErrorInvalidValue) unless
+// query tiles hold at most 64 rows, smem_bytes is what the layout needs, and
+// stages <= key tiles + 1 (the Q buffers' reuse rule).  Grid (n_groups,
+// heads, B): group g owns query tiles [g n_qtiles / n_groups, (g + 1) ...).
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int n_tok,
+                         int heads, const long long* st, float scale, const int* plan,
+                         cudaStream_t stream) {
+  const int n_qtiles = plan[0], n_groups = plan[1], stages = plan[2];
+  const int n_kt = (n_tok + kTile - 1) / kTile;
+  if (n_qtiles < 1 || n_qtiles > n_tok || (n_tok + n_qtiles - 1) / n_qtiles > kTile || n_groups < 1 ||
+      n_groups > n_qtiles || n_groups > 65535 || stages < 2 || stages > 5 || stages > n_kt + 1 ||
+      (size_t)plan[3] != wgmma_smem_bytes<HD>(stages))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attn_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         plan[3]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_tok + kBM - 1) / kBM, heads, B);
-  attn_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, n_tok, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], scale);
+  const dim3 grid(n_groups, heads, B);
+  attn_wgmma_kernel<HD><<<grid, kWgs * kWgThreads, plan[3], stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)out, n_tok,
+      n_qtiles, n_groups, stages, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* out, int B, int n_tok,
-                         int heads, int hd, const long long* st, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch_mma<16>(q, k, v, out, B, n_tok, heads, st, scale, stream);
-    case 32: return launch_mma<32>(q, k, v, out, B, n_tok, heads, st, scale, stream);
-    case 64: return launch_mma<64>(q, k, v, out, B, n_tok, heads, st, scale, stream);
-    case 80: return launch_mma<80>(q, k, v, out, B, n_tok, heads, st, scale, stream);
-    case 128: return launch_mma<128>(q, k, v, out, B, n_tok, heads, st, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// info = {registers per thread, local (spill and stack) bytes per thread,
+// dynamic shared bytes, resident blocks per SM} of one kernel at one launch shape.
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, int smem_bytes, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem_bytes);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = smem_bytes;
+  info[3] = blocks;
+  return err;
+}
+
+template <int HD>
+cudaError_t info_at(int dtype, int smem_bytes, int* info) {
+  if (dtype == 0) return kernel_info(attn_fma_kernel<HD>, kFmaThreads, (int)fma_smem_bytes<HD>(), info);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  return kernel_info(attn_wgmma_kernel<HD>, kWgs * kWgThreads, smem_bytes, info);
 }
 
 }  // namespace
@@ -493,17 +793,41 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* out,
 // C entry.  q, k, v, out: device pointers to (B, T, heads * hd) tensors whose
 // channel axis is contiguous; strides = {q batch, q row, k batch, k row,
 // v batch, v row, out batch, out row} in elements, every row 16-byte aligned.
-// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel).
-// Launches on `stream`; returns the cudaError_t of the launch (0 = launched),
-// cudaErrorInvalidValue for a head width or type it does not take.
+// dtype: 0 = float32 (the FMA kernel; plan unused), 1 = bfloat16 (the wgmma
+// kernel; plan = {n_qtiles, n_groups, stages, smem_bytes}).  Launches on
+// `stream`; returns the cudaError_t of the launch (0 = launched),
+// cudaErrorInvalidValue for a head width, type or plan it does not take.
 extern "C" int whole_seq_attention_launch(const void* q, const void* k, const void* v, void* out,
                                           int B, int T, int heads, int hd,
                                           const long long* strides, float scale, int dtype,
-                                          void* stream) {
+                                          const int* plan, void* stream) {
   if (B <= 0 || T <= 0 || heads <= 0) return (int)cudaSuccess;
   if (B > 65535 || heads > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return (int)dispatch_fma(q, k, v, out, B, T, heads, hd, strides, scale, s);
-  if (dtype == 1) return (int)dispatch_mma(q, k, v, out, B, T, heads, hd, strides, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return (int)launch_wgmma<16>(q, k, v, out, B, T, heads, strides, scale, plan, s);
+    case 32: return (int)launch_wgmma<32>(q, k, v, out, B, T, heads, strides, scale, plan, s);
+    case 64: return (int)launch_wgmma<64>(q, k, v, out, B, T, heads, strides, scale, plan, s);
+    case 80: return (int)launch_wgmma<80>(q, k, v, out, B, T, heads, strides, scale, plan, s);
+    case 128: return (int)launch_wgmma<128>(q, k, v, out, B, T, heads, strides, scale, plan, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What the compiler and the occupancy calculator say of the kernel that a
+// launch of this head width and type runs with `smem_bytes` of dynamic
+// shared memory (ignored for float32, whose block is fixed): info =
+// {registers per thread, local bytes per thread, dynamic shared bytes,
+// resident blocks per SM}.  Returns a cudaError_t.
+extern "C" int whole_seq_attention_info(int hd, int dtype, int smem_bytes, int* info) {
+  switch (hd) {
+    case 16: return (int)info_at<16>(dtype, smem_bytes, info);
+    case 32: return (int)info_at<32>(dtype, smem_bytes, info);
+    case 64: return (int)info_at<64>(dtype, smem_bytes, info);
+    case 80: return (int)info_at<80>(dtype, smem_bytes, info);
+    case 128: return (int)info_at<128>(dtype, smem_bytes, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -14,6 +14,11 @@ first use, ops/build.py) and counts the launch in
 CLIP block.  There is no other path: a CUDA tensor launches the kernel or
 raises.
 
+Blocks.  float32 runs the FMA kernel, one block per 64 query rows of a
+(sequence, head).  bfloat16 runs the wgmma kernel on the blocks that
+``plan_bf16`` lays out: query tiles of at most 64 rows, two warpgroups a
+block, K and V resident in shared memory or streaming through a ring.
+
 Strides.  The kernel takes a batch stride and a row stride per tensor, so the
 three ``chunk`` views of one (B, T, 3D) qkv tensor are read where they lie.
 A tensor whose channel axis is not contiguous, or whose rows are not 16-byte
@@ -22,6 +27,7 @@ aligned, is made contiguous first.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -29,8 +35,62 @@ from boxfusion_tpu_torch.ops import build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)  # head widths the kernel is instantiated for
 # the C entry's type codes: float32 runs the FMA kernel (full float32, no
-# TF32), bfloat16 the tensor-core kernel (mma.sync, float32 accumulators)
+# TF32), bfloat16 the wgmma kernel (float32 accumulators)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The bfloat16 kernel's tiles (csrc/attention_kernel.cu): 64 query rows (the
+# wgmma's M) and 64 keys; warpgroups a block; the shared memory one block may
+# use on Hopper; the most a block takes to keep a head's K and V resident, so
+# that two blocks share an SM.
+TILE = 64
+WARPGROUPS = 2
+SMEM_LIMIT = 232_448
+RESIDENT_BYTES = SMEM_LIMIT // 2 - 1024
+MAX_RESIDENT_TILES = 5  # key tiles a block holds at once (its wait on cp.async groups)
+STAGES = 3              # K, V slots when they stream
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The bfloat16 kernel's launch: grid (n_groups, heads, B) of blocks of
+    ``WARPGROUPS`` warpgroups; the kernel cuts the T query rows of a
+    (sequence, head) into ``n_qtiles`` near-equal tiles and gives each block a
+    near-equal run of them, which its warpgroups take in turn, one each a
+    round; ``stages`` K, V slots; ``smem_bytes`` of shared memory a block."""
+
+    n_qtiles: int
+    n_groups: int
+    stages: int
+    smem_bytes: int
+
+
+def plan_bf16(T: int, hd: int) -> Plan:
+    """Blocks of the bfloat16 kernel for sequences of T tokens, head width hd.
+
+    The T query rows of a (sequence, head) fall into ``ceil(T / 64)`` tiles
+    (at T = 257: 51 or 52 rows), so no tile exists for a few tail rows.  If
+    the head's K and V tiles (at most 5) fit beside two Q tiles per
+    warpgroup in ``RESIDENT_BYTES`` (T = 257 at hd 64: 112 KiB), one block
+    walks all the query tiles and loads K and V once; otherwise each block
+    takes two or three tiles (at least half of the rows its rounds could
+    hold) and K and V stream through ``STAGES`` slots (fewer if they would
+    not fit).
+    """
+    if T < 1 or hd not in HEAD_DIMS:
+        raise ValueError(f"no plan for T = {T}, head width {hd}")
+    n_kt = -(-T // TILE)
+
+    def plan(stages, groups):
+        return Plan(n_kt, groups, stages, (2 * WARPGROUPS + 2 * stages) * TILE * hd * 2)
+
+    resident = plan(max(n_kt, 2), 1)
+    if n_kt <= MAX_RESIDENT_TILES and resident.smem_bytes <= RESIDENT_BYTES:
+        return resident
+    groups = max(1, n_kt // WARPGROUPS)
+    stages = max(2, min(STAGES, n_kt))
+    while stages > 2 and plan(stages, groups).smem_bytes > RESIDENT_BYTES:
+        stages -= 1
+    return plan(stages, groups)
 
 
 def whole_seq_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,13 +135,33 @@ def _strided(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _launcher():
-    fn = build.load("attention_kernel").whole_seq_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = build.load("attention_kernel")
+    lib.whole_seq_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lib.whole_seq_attention_launch.restype = ctypes.c_int
+    lib.whole_seq_attention_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.whole_seq_attention_info.restype = ctypes.c_int
+    return lib
+
+
+def kernel_info(T: int, hd: int, dtype: torch.dtype) -> dict:
+    """What the compiler and the occupancy calculator say of the kernel a
+    launch at (T, hd, dtype) runs: registers and local (spill + stack) bytes
+    per thread, dynamic shared bytes per block, resident blocks per SM; for
+    bfloat16 also the plan.  Needs a card (it loads the library)."""
+    bf16 = dtype == torch.bfloat16
+    plan = plan_bf16(T, hd) if bf16 else None
+    info = (ctypes.c_int * 4)()
+    rc = _library().whole_seq_attention_info(hd, _DTYPE_CODE[dtype], plan.smem_bytes if bf16 else 0, info)
+    if rc != 0:
+        raise RuntimeError(f"whole_seq_attention_info failed: cudaError_t {rc}")
+    out = dict(registers=info[0], local_bytes=info[1], smem_bytes=info[2], blocks_per_sm=info[3])
+    if bf16:
+        out.update(n_qtiles=plan.n_qtiles, n_groups=plan.n_groups, stages=plan.stages)
+    return out
 
 
 def whole_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,10 +191,13 @@ def whole_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
     )
+    plan = (ctypes.c_int * 4)()  # float32: unused
+    if q.dtype == torch.bfloat16:
+        plan[:] = dataclasses.astuple(plan_bf16(T, hd))
     with torch.cuda.device(q.device):
-        rc = _launcher()(
+        rc = _library().whole_seq_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, T, heads, hd, strides, float(sm_scale), _DTYPE_CODE[q.dtype],
+            B, T, heads, hd, strides, float(sm_scale), _DTYPE_CODE[q.dtype], plan,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:

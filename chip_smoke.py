@@ -16,8 +16,11 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 events.  fitness_cells at the main path's 160 cells x 1024
                 particles; whole_seq_attention at the CLIP label batch
                 (B = 128, T = 257, 16 x 64) in bfloat16 and float32, a ragged
-                float32 case, ViT-H's head width 80 and CuTR's global shape
-                (T = 1024); tiled_attention at CuTR's global blocks (12 x 1024
+                float32 case, ViT-H's head width 80, CuTR's global shape
+                (T = 1024), and bfloat16 cases at the bfloat16 kernel's tails
+                (B = 69, T = 65, 129 at hd 128, 37 at hd 16), with registers,
+                shared memory, blocks per SM and TB/s at the main shape;
+                tiled_attention at CuTR's global blocks (12 x 1024
                 and 12 x 4096, D = 64) and two ragged lengths, float32 and
                 bfloat16.
   2b. ablation -- the path that runs tiled_attention
@@ -64,7 +67,9 @@ Phases, in order; any failure stops the run with a non-zero exit code:
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
-"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]},
+"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
+(whole_seq_attention's entry also has "registers", "local_bytes",
+"smem_bytes", "blocks_per_sm" and "achieved_tb_s"),
 and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints nothing on stdout and exits 1.
@@ -99,8 +104,17 @@ ATTENTION_CASES = {
     "ragged_f32": (3, 37, 4, 16, "float32"),       # tests/test_ops.py:51-69
     "clip_h14_bf16": (8, 257, 16, 80, "bfloat16"),
     "cutr_global_bf16": (1, 1024, 12, 64, "bfloat16"),
+    # the bfloat16 kernel's tail logic: the host engine's label batch (69
+    # live crops), one row past a key tile, hd 128, hd 16 with T < 64
+    "label_batch_bf16": (69, 257, 16, 64, "bfloat16"),
+    "tail_65_bf16": (3, 65, 4, 64, "bfloat16"),
+    "tail_129_hd128_bf16": (2, 129, 2, 128, "bfloat16"),
+    "ragged_bf16": (2, 37, 4, 16, "bfloat16"),
 }
 MAIN_ATTENTION_CASE = "clip_l14_bf16"
+# what the kernels record adds for whole_seq_attention: kernel_info's, and the rate
+KERNEL_INFO_KEYS = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+ATTENTION_RECORD_KEYS = KERNEL_INFO_KEYS + ("achieved_tb_s",)
 
 
 def log(msg: str) -> None:
@@ -265,11 +279,13 @@ def check_attention(device) -> dict:
     import torch.nn.functional as F
 
     from boxfusion_tpu_torch.ops.attention_kernel import (
+        kernel_info,
         whole_seq_attention,
         whole_seq_attention_reference,
     )
 
     main = None
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     for case, (B, T, heads, hd, dtype) in ATTENTION_CASES.items():
         q, k, v, _, scale = attention_case(device, case)
         got = whole_seq_attention(q, k, v, heads, scale)
@@ -285,6 +301,15 @@ def check_attention(device) -> dict:
                                f"max |diff| {err} beyond atol {atol} + rtol {rtol}")
         rec = dict(phase="kernels", name="whole_seq_attention", case=case, B=B, T=T, heads=heads,
                    head_dim=hd, dtype=dtype, max_abs_err=err, atol=atol, rtol=rtol)
+        if case in ("clip_l14_f32", MAIN_ATTENTION_CASE):
+            # ptxas's registers, shared memory and occupancy of the launch;
+            # the query tiles (items), the blocks launched, and waves of
+            # blocks (blocks_per_sm x SMs at a time)
+            info = kernel_info(T, hd, q.dtype)
+            items = info.get("n_qtiles", -(-T // 64)) * heads * B
+            grid = info.get("n_groups", -(-T // 64)) * heads * B
+            rec.update(info, items=items, grid=grid,
+                       waves=grid / (n_sm * max(info["blocks_per_sm"], 1)))
         if case == "clip_l14_f32":  # the FMA kernel's time at the main shape, for the record
             q4, k4, v4 = (x.reshape(B, T, heads, hd).transpose(1, 2) for x in (q, k, v))
             rec["ms"] = cuda_ms(lambda: whole_seq_attention(q, k, v, heads, scale), reps=20)
@@ -314,7 +339,8 @@ def check_attention(device) -> dict:
             replaces="boxfusion_tpu/ops/attention_kernel.py:87",
             operations=ops, bytes=n_bytes, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=library_ms,
+            library_ms=library_ms, achieved_tb_s=n_bytes / (ms * 1e-3) / 1e12,
+            **{key: rec[key] for key in KERNEL_INFO_KEYS},
         )
         print(json.dumps({**rec, **main}))
     return main
@@ -938,7 +964,10 @@ def main() -> int:
         launches[name] = mrec["launches"][name] + drec["launches"][name]
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    kernels = [{**{k: rec[k] for k in keys}, "launches": launches[rec["name"]]} for rec in krecs]
+    kernels = [{**{k: rec[k] for k in keys},
+                **({k: rec[k] for k in ATTENTION_RECORD_KEYS} if rec["name"] == "whole_seq_attention" else {}),
+                "launches": launches[rec["name"]]}
+               for rec in krecs]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
