@@ -74,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int kBM = 64;          // query rows per block
@@ -321,61 +323,6 @@ constexpr int kTile = 64;         // query rows per wgmma tile and keys per ring
 constexpr int kWgThreads = 128;   // one warpgroup
 constexpr int kWgs = 2;           // warpgroups a block: each its own query tile, K and V shared
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16 bytes global -> shared, asynchronously; with live = false nothing is read
-// and the 16 bytes become zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(live ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// Wait until at most n of this thread's commit groups are pending (n < 4).
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Keeps the compiler from moving accesses of wgmma's registers across the
-// asynchronous region.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// A shared-memory matrix descriptor of the interleaved layout (no swizzle):
-// start address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
 // Rows [row0, row0 + 64) of one head's (T, HD) block -> a shared tile
 // [HD / 8][64][8], by cp.async; rows at or past row_end become zeros.  Two
 // neighbouring threads copy the two halves of one 32-byte sector of a row.
@@ -390,118 +337,6 @@ __device__ __forceinline__ void copy_tile(const __nv_bfloat16* __restrict__ src,
                src + (live ? (long long)(row0 + r) * row_stride + c * 8 : 0), live);
   }
 }
-
-// wgmma.mma_async m64nNk16, bf16 inputs, float32 accumulators, A from registers
-// (the m16n8k16 A fragments of the warpgroup's four warps, rows 16w..16w+15),
-// B through a shared-memory descriptor; kTransB = 1 reads B as MN-major.
-// d: the N/2 accumulators of this thread; scale_d = 0 overwrites them.
-template <int N, int kTransB> struct WgmmaRS;
-template <> struct WgmmaRS<64, 0> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-template <> struct WgmmaRS<16, 1> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-template <> struct WgmmaRS<32, 1> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-template <> struct WgmmaRS<64, 1> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-template <> struct WgmmaRS<80, 1> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-template <> struct WgmmaRS<128, 1> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39,"
-        "%40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55,"
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
 
 // One (query tile, key tile) pair for the warpgroup: scores, online softmax,
 // o = o * alpha + p v.  Ks, Vs: the slot's tiles.  kPartial: only n_live < 64
@@ -764,22 +599,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// info = {registers per thread, local (spill and stack) bytes per thread,
-// dynamic shared bytes, resident blocks per SM} of one kernel at one launch shape.
-template <typename Kernel>
-cudaError_t kernel_info(Kernel kernel, int threads, int smem_bytes, int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  int blocks = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem_bytes);
-  info[0] = attr.numRegs;
-  info[1] = (int)attr.localSizeBytes;
-  info[2] = smem_bytes;
-  info[3] = blocks;
-  return err;
-}
 
 template <int HD>
 cudaError_t info_at(int dtype, int smem_bytes, int* info) {

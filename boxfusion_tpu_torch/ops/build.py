@@ -3,9 +3,10 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers: a build takes seconds,
 not minutes).  Libraries go to ``boxfusion_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  ``build_all`` starts one
-nvcc per source, all at once, and waits for them together.
+``.gitignore``), named by a hash of the source, the headers under ``csrc/``
+and the flags, so an edited source or header is rebuilt and an unchanged one
+is reused.  ``build_all`` starts one nvcc per source, all at once, and waits
+for them together.
 
 Flags, per source: all get sm_90a (Hopper), -O3 and IEEE division and square
 root (nvcc's default without --use_fast_math).  The fitness kernel also gets
@@ -78,9 +79,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS[name]).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library ``name`` is built: named by a hash of its source,
+    every header under csrc/ (a source may include any of them) and its flags."""
+    digest = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS[name]).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Build]:

@@ -140,6 +140,27 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert (build.CSRC_DIR / build.SOURCES["tiled_attention_kernel"]).exists()
 
 
+def test_kernel_build_hash_sees_the_headers(tmp_path, monkeypatch):
+    """A source may include any csrc/*.cuh: a changed header gives every
+    library a new path (so a stale .so is not loaded), an unchanged tree the
+    same one."""
+    import shutil
+
+    from boxfusion_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    assert (csrc / "hopper_common.cuh").exists()
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    assert before == {name: build.library_path(name) for name in build.SOURCES}
+    with open(csrc / "hopper_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(after[name] != before[name] for name in build.SOURCES)
+    assert all(after[name].name.startswith(f"lib{name}-") for name in build.SOURCES)
+
+
 def test_wrapper_rejects_unsupported_devices():
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from boxfusion_tpu_torch.tools import attention_ablation as ab
 from boxfusion_tpu_torch.tools.attention_ablation import reference_attention, tiled_attention
 
 torch.set_num_threads(2)
@@ -85,25 +86,91 @@ def test_wrapper_checks_its_arguments():
         tiled_attention(q[0], q[0], q[0])
 
 
+@pytest.mark.parametrize("hd", ab.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_fits_the_card_and_fills_it(hd, dtype):
+    """plan_tiled: shared memory fits a block on Hopper, at least two K, V
+    stages, 64 query rows per consumer warpgroup (float32: one warpgroup of
+    64 rows; bfloat16: two consumers, or three at head widths up to 64,
+    beside the producer, one block per SM), and at (12, 4096, 64), the
+    ablation's long shape, at least one block for every SM of the card.  At
+    (12, 1024, 64) bfloat16 runs 96 blocks of two consumers: timed faster
+    than a full wave of 192 one-consumer blocks, which load K and V twice as
+    often.  The card test holds these against what the C entry lays out."""
+    for bh, n in ((1, 1), (3, 63), (3, 65), (2, 320), (12, 1024), (12, 4096), (66, 129), (40, 1000)):
+        plan = ab.plan_tiled(bh, n, hd, dtype)
+        assert plan.smem_bytes < ab.SMEM_LIMIT and plan.stages >= 2, (bh, n, plan)
+        if dtype == torch.float32:
+            assert (plan.block_rows, plan.warpgroups, plan.stages) == (64, 1, 2)
+            continue
+        consumers = plan.warpgroups - 1
+        assert consumers in (2, 3) and plan.block_rows == 64 * consumers, (bh, n, plan)
+        assert consumers == 2 or hd <= 64
+        assert 2 <= plan.stages <= ab.MAX_STAGES
+    blocks = lambda bh, n, d: -(-n // ab.plan_tiled(bh, n, hd, d).block_rows) * bh
+    assert blocks(12, 1024, torch.float32) >= ab.NUM_SMS
+    if hd == 64:
+        assert blocks(12, 4096, torch.float32) >= ab.NUM_SMS
+        assert ab.plan_tiled(12, 4096, hd, torch.bfloat16).warpgroups == 4  # 264 blocks: two full waves
+        assert blocks(12, 4096, torch.bfloat16) == 2 * ab.NUM_SMS
+        assert ab.plan_tiled(12, 1024, hd, torch.bfloat16).warpgroups == 3  # 96 blocks of 128 rows
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="no plan"):
+        ab.plan_tiled(12, 1024, 80, torch.bfloat16)
+    with pytest.raises(ValueError, match="no plan"):
+        ab.plan_tiled(12, 0, 64, torch.float32)
+    with pytest.raises(ValueError, match="no plan"):
+        ab.plan_tiled(12, 64, 64, torch.float16)
+
+
+# the card test's lengths: around the key tiles and the 128-row blocks, and
+# the ablation's; (BH, N) pairs whose last bfloat16 block is ragged with
+# consumers that hold no live row: three consumers over 1000 = 5 x 192 + 40
+# rows (two idle, and a partial key tile), two over 129 rows (one idle)
+CARD_LENGTHS = (1, 63, 64, 65, 127, 129, 320, 1024, 4096)
+CARD_RAGGED_BLOCK_CASES = ((40, 1000), (66, 129))
+
+
 @pytest.mark.cuda
 def test_tiled_attention_kernel_on_card_matches_twin():
-    """The CUDA kernel against its twin at chip_smoke's shapes and
-    tolerances, float32 and bfloat16, ragged N included; a launch counted."""
+    """The CUDA kernel against its twin on the card at every head width, in
+    float32 and bfloat16 (chip_smoke.tiled_tolerance), at N in CARD_LENGTHS
+    (BH = 3), chip_smoke's TILED_CASES and two cases whose last block holds
+    idle consumers; a launch counted each time.  The launch the C entry lays
+    out (query rows, warpgroups, stages, shared bytes) is plan_tiled's, with
+    nothing spilled; the C entry refuses a scale <= 0 and a plan the kernel
+    does not take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     sys.path.insert(0, REPO)
-    from chip_smoke import TILED_CASES, TILED_F32_TOL, attention_tolerance, tiled_case
+    from chip_smoke import TILED_CASES, tiled_tolerance
 
+    dev = torch.device("cuda")
+    cases = [(3, n) for n in CARD_LENGTHS] + list(TILED_CASES) + list(CARD_RAGGED_BLOCK_CASES)
     for dtype in (torch.float32, torch.bfloat16):
-        atol, rtol = ((TILED_F32_TOL, TILED_F32_TOL) if dtype == torch.float32
-                      else attention_tolerance(dtype))
-        for bh, n in TILED_CASES:
-            q, k, v = tiled_case(torch.device("cuda"), bh, n, dtype)
-            before = tiled_attention.launches
-            got = tiled_attention(q, k, v)
-            want = reference_attention(q, k, v)
-            torch.cuda.synchronize()
-            assert tiled_attention.launches == before + 1
-            assert got.dtype == q.dtype and got.shape == q.shape and torch.isfinite(got).all()
-            excess = (got.float() - want.float()).abs() - (atol + rtol * want.float().abs())
-            assert float(excess.max()) <= 0, (bh, n, dtype)
+        for hd in ab.HEAD_DIMS:
+            for bh, n in cases:
+                plan, info = ab.plan_tiled(bh, n, hd, dtype), ab.kernel_info(bh, n, hd, dtype)
+                laid_out = (info["block_rows"], info["warpgroups"], info["stages"], info["smem_bytes"])
+                assert laid_out == (plan.block_rows, plan.warpgroups, plan.stages, plan.smem_bytes), (bh, n, hd)
+                assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (bh, n, hd, info)
+                gen = torch.Generator(device=dev).manual_seed(1000 * n + hd)
+                q, k, v = torch.randn(3, bh, n, hd, generator=gen, device=dev).to(dtype).unbind(0)
+                before = tiled_attention.launches
+                got = tiled_attention(q, k, v)
+                want = reference_attention(q, k, v)
+                torch.cuda.synchronize()
+                assert tiled_attention.launches == before + 1
+                assert got.dtype == q.dtype and got.shape == q.shape and torch.isfinite(got).all()
+                excess = (got.float() - want.float()).abs() - tiled_tolerance(want)
+                assert float(excess.max()) <= 0, (bh, n, hd, dtype, float((got.float() - want.float()).abs().max()))
+
+    lib, stream = ab._library(), torch.cuda.current_stream().cuda_stream
+    for hd, scale, consumers, stages in ((64, -0.125, 2, 2), (64, 0.0, 2, 2), (128, 0.125, 3, 2),
+                                         (64, 0.125, 2, ab.MAX_STAGES + 1), (64, 0.125, 2, 1)):
+        x = torch.randn(3, 64, hd, device=dev, dtype=torch.bfloat16)
+        out = torch.empty_like(x)
+        assert lib.tiled_attention_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 3, 64, hd,
+                                          scale, 1, consumers, stages, stream) != 0, (hd, scale, consumers, stages)
