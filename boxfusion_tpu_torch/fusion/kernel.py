@@ -21,11 +21,12 @@ each hull's edges clipped to the other's half-planes -- fixed shapes, no
 heap, no data-dependent control flow.
 
 Two implementations of ``multiview_fitness``:
-  * ``impl="kernel"`` (the main path): the observed polygons are prepared
-    once per view (``ops.fitness_kernel.prepare_observed``) and every
-    (object x view x particle) cell goes through ``ops.fitness_kernel.
-    fitness_cells`` -- the hand-written CUDA kernel on a GPU tensor, its
-    plain twin on a CPU tensor;
+  * ``impl="kernel"``: the observed polygons are prepared once per view
+    (``ops.fitness_kernel.prepare_observed``) and every (object x view x
+    particle) cell goes through ``ops.fitness_kernel.fitness_cells`` -- the
+    hand-written CUDA kernel on a GPU tensor, its plain twin on a CPU
+    tensor.  This is one iteration's fitness; the optimizer's main path
+    runs the whole search in ``ops.pst_search`` on the same arithmetic;
   * ``impl="reference"``: the vectorised ``prepare_polygon`` path below
     (the JAX package's ``impl="xla"``), held against the JAX code in tests.
 """
@@ -276,6 +277,24 @@ def kernel_inputs(uv: torch.Tensor, prep: dict, view_mask: torch.Tensor):
     )
 
 
+def cell_fitness(uv: torch.Tensor, prep: dict, view_mask: torch.Tensor, cells) -> torch.Tensor:
+    """Fitness of every particle from the per-cell errors of ``cells``
+    (``fitness_cells`` or its plain twin): their sum over the live views,
+    divided by (live views + 1e-6).
+
+    Args:
+      uv: (N, V, P, 8, 2) candidate corners; prep: ``prepare_observed`` of
+        the (N * V) observed polygons; view_mask: (N, V).
+
+    Returns:
+      (N, P) fitness values (lower is better).
+    """
+    N, V, P = uv.shape[:3]
+    live = view_mask > 0
+    err = cells(*kernel_inputs(uv, prep, live))  # (N*V, P), view-masked
+    return err.reshape(N, V, P).sum(1) / (live.sum(-1) + 1e-6)[:, None]
+
+
 def multiview_fitness(
     xyzlhw: torch.Tensor,
     R: torch.Tensor,
@@ -319,15 +338,13 @@ def multiview_fitness(
 
     uv = project_candidates(xyzlhw, R, pst, search_size, cam_poses, K, H, W)
     N, V, P = uv.shape[:3]
-    n_views = (view_mask > 0).sum(-1)
 
     if impl == "kernel":
         from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells, prepare_observed
 
         if prep is None:
             prep = prepare_observed(obs_corners.reshape(N * V, 8, 2))
-        err = fitness_cells(*kernel_inputs(uv, prep, view_mask > 0))  # (N*V, P), view-masked
-        return err.reshape(N, V, P).sum(1) / (n_views + 1e-6)[:, None]
+        return cell_fitness(uv, prep, view_mask, fitness_cells)
     if impl != "reference":
         raise ValueError(f"impl must be 'kernel' or 'reference', got {impl!r}")
 
@@ -340,4 +357,4 @@ def multiview_fitness(
     iou = prepared_polygon_iou(prep_a, prep_b)  # (N, V, P)
     # where-mask (not multiply) so NaNs from padded view slots cannot leak
     err = torch.where(view_mask[..., None] > 0, (1.0 - iou).abs(), 0.0)
-    return err.sum(1) / (n_views + 1e-6)[:, None]
+    return err.sum(1) / ((view_mask > 0).sum(-1) + 1e-6)[:, None]

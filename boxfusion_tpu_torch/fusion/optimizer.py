@@ -13,17 +13,20 @@ host-side optimizer loop of ``BoxFusion`` (reference box_fusion.py:463-724):
     consecutive successes (685-691, beta=0.9), stop after 3 consecutive
     failures (708-714), final dims clamp >= 0.01 (716-720).
 
-The JAX version vmaps over objects and runs a ``while_loop`` that exits
-early once every object is done.  Here all N objects step together:
-converged objects are frozen (their updates are masked by ``done``) and
-their view cells are masked out of the fitness call, whose kernel skips
-masked cells, so the trajectory does not depend on when the loop stops.  One
-iteration is one fitness launch over all (object x view) cells.  With
-``cfg.unroll`` the loop runs its fixed ``cfg.iters`` iterations and reads
-nothing back: a fused keyframe is ``iters`` launches with no host sync.
-Without it (the default, as in the JAX package) the loop reads one flag per
-iteration -- every object done? -- and stops early, as the ``while_loop``
-does (utils/device.py:host_reads counts the reads).
+The JAX version vmaps over objects and runs a ``while_loop`` per object on
+the device.  Here, with ``fitness_impl="kernel"`` (the default) on a CUDA
+device, the whole search of all N objects is one launch of
+``ops.pst_search.pst_search`` (one thread-block cluster per object; the loop,
+its early exit and the particle reduction run on the card, and nothing is
+read back: ``cfg.unroll`` changes nothing there).  On the CPU, and with
+``fitness_impl="reference"``, ``search_loop`` runs it eagerly: all N objects
+step together, converged objects are frozen (their updates are masked by
+``done``) and their view cells are masked out of the fitness call, so the
+trajectory does not depend on when the loop stops.  With ``cfg.unroll`` that
+loop runs its fixed ``cfg.iters`` iterations and reads nothing back; without
+it (the default, as in the JAX package) it reads one flag per iteration --
+every object done? -- and stops early, as the ``while_loop`` does
+(utils/device.py:host_reads counts the reads).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ import dataclasses
 import torch
 
 from boxfusion_tpu_torch.fusion.kernel import multiview_fitness
+from boxfusion_tpu_torch.ops.fitness_kernel import prepare_observed
+from boxfusion_tpu_torch.ops.pst_search import pst_search
 from boxfusion_tpu_torch.utils.device import DeviceLike, host_reads, resolve_device
 
 
@@ -46,12 +51,14 @@ class PSTOptConfig:
     max_contributors: int = 200  # cal_transform cap (box_fusion.py:514)
     min_scale: float = 1e-3
     fail_limit: int = 3
-    # "kernel" (prepare_observed + fitness_cells: the CUDA kernel on a GPU,
-    # its plain twin on the CPU) or "reference" (the prepare_polygon path).
+    # "kernel" (prepare_observed + pst_search: one CUDA launch for the whole
+    # search on a GPU, the eager loop around the plain fitness twin on the
+    # CPU) or "reference" (the eager loop around the prepare_polygon path).
     fitness_impl: str = "kernel"
-    # True: run the fixed `iters` iterations with no device-to-host read.
-    # False: read one flag per iteration and stop once every object is done.
-    # Identical trajectory -- the body freezes converged objects.
+    # The eager loop only.  True: run the fixed `iters` iterations with no
+    # device-to-host read.  False: read one flag per iteration and stop once
+    # every object is done.  Identical trajectory -- the body freezes
+    # converged objects.
     unroll: bool = False
 
 
@@ -132,6 +139,58 @@ def _update_search_size(iou: torch.Tensor, mean_transform: torch.Tensor, cfg: PS
     return scale * iou[:, None] * normal + cfg.min_scale
 
 
+def search_loop(xyzlhw0: torch.Tensor, pst: torch.Tensor, active: torch.Tensor, fitness,
+                cfg: PSTOptConfig):
+    """The PST search as an eager loop over iterations, all objects at once.
+
+    Args:
+      xyzlhw0: (N, 6) initial boxes; pst: (P, 6); active: (N,) bool.
+      fitness: ``fitness(xyzlhw, search_size, done) -> (N, P)``, the fitness
+        of every particle with the views of ``done`` objects masked.
+
+    Returns:
+      (fused (N, 6), need_update (N,) bool, iterations (N,) int32).
+    """
+    dev = xyzlhw0.device
+    N = xyzlhw0.shape[0]
+    ss = torch.tensor([cfg.center_init_size] * 3 + [cfg.shape_init_size] * 3,
+                      dtype=torch.float32, device=dev).expand(N, 6)
+    xyzlhw = xyzlhw0
+    prev_ss = torch.zeros((N, 6), dtype=torch.float32, device=dev)
+    prev_success = torch.zeros(N, dtype=torch.bool, device=dev)
+    fail = torch.zeros(N, dtype=torch.int32, device=dev)
+    need_update = torch.zeros(N, dtype=torch.bool, device=dev)
+    iterations = torch.zeros(N, dtype=torch.int32, device=dev)
+    done = ~active  # inactive slots are born converged
+
+    for _ in range(cfg.iters):
+        if not cfg.unroll and host_reads.read(done.all()):
+            break
+        success, mean_iou, mean_transform = _cal_transform(
+            fitness(xyzlhw, ss, done), pst, ss, cfg.max_contributors)
+        new_ss = _update_search_size(mean_iou, mean_transform, cfg)
+        new_ss = torch.where(
+            (prev_success & success)[:, None],
+            cfg.beta * new_ss + (1.0 - cfg.beta) * prev_ss,
+            new_ss,
+        )
+
+        upd = success & ~done
+        xyzlhw = torch.where(upd[:, None], xyzlhw + mean_transform, xyzlhw)
+        prev_ss = torch.where(upd[:, None], new_ss, prev_ss)
+        fail = torch.where(done, fail, torch.where(success, 0, fail + 1))
+        need_update = need_update | upd
+        iterations = iterations + (~done).to(torch.int32)
+        new_done = done | (fail >= cfg.fail_limit)
+        ss = torch.where(done[:, None], ss, new_ss)
+        prev_success = torch.where(done, prev_success, success)
+        done = new_done
+
+    # final dims clamp (box_fusion.py:716-720), applied only when fused
+    fused = torch.cat([xyzlhw[:, :3], torch.clamp(xyzlhw[:, 3:], min=0.01)], dim=-1)
+    return torch.where(need_update[:, None], fused, xyzlhw0), need_update & active, iterations
+
+
 def optimize_boxes(
     init_xyzlhw,
     init_R,
@@ -159,12 +218,14 @@ def optimize_boxes(
       device: where to run (default "cuda"); array inputs are moved there.
 
     Returns:
-      (fused_xyzlhw (N, 6), need_update (N,) bool), on ``device``.
+      (fused_xyzlhw (N, 6), need_update (N,) bool), on ``device``.  With
+      ``cfg.fitness_impl == "kernel"`` on a CUDA device this is one launch
+      of ``pst_search`` and reads nothing back.
     """
     dev = resolve_device(device)
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
 
     xyzlhw0 = f32(init_xyzlhw)
     R = f32(init_R)
@@ -172,50 +233,21 @@ def optimize_boxes(
     poses = f32(cam_poses)
     corners = f32(obs_corners)
     vmask = f32(view_mask) > 0
-    active = torch.as_tensor(obj_mask, device=dev).bool()
+    active = torch.as_tensor(obj_mask, device=dev).bool().contiguous()
     K = f32(K)
     N, V = vmask.shape
 
-    prep = None
     if cfg.fitness_impl == "kernel":
-        from boxfusion_tpu_torch.ops.fitness_kernel import prepare_observed
-
         prep = prepare_observed(corners.reshape(N * V, 8, 2))  # once per view
+        fused, need_update, _ = pst_search(xyzlhw0, R, pst, poses, K, vmask, active, prep, H, W, cfg)
+        return fused, need_update
 
-    ss = f32([cfg.center_init_size] * 3 + [cfg.shape_init_size] * 3).expand(N, 6)
-    xyzlhw = xyzlhw0
-    prev_ss = torch.zeros((N, 6), dtype=torch.float32, device=dev)
-    prev_success = torch.zeros(N, dtype=torch.bool, device=dev)
-    fail = torch.zeros(N, dtype=torch.int32, device=dev)
-    need_update = torch.zeros(N, dtype=torch.bool, device=dev)
-    done = ~active  # inactive slots are born converged
-
-    for _ in range(cfg.iters):
-        if not cfg.unroll and host_reads.read(done.all()):
-            break
-        # converged objects' views are masked: the kernel skips their cells
-        fitness = multiview_fitness(
+    def fitness(xyzlhw, ss, done):
+        # converged objects' views are masked: their cells are skipped
+        return multiview_fitness(
             xyzlhw, R, pst, ss, poses, corners, vmask & ~done[:, None], K, H, W,
-            impl=cfg.fitness_impl, prep=prep,
-        )
-        success, mean_iou, mean_transform = _cal_transform(fitness, pst, ss, cfg.max_contributors)
-        new_ss = _update_search_size(mean_iou, mean_transform, cfg)
-        new_ss = torch.where(
-            (prev_success & success)[:, None],
-            cfg.beta * new_ss + (1.0 - cfg.beta) * prev_ss,
-            new_ss,
+            impl=cfg.fitness_impl,
         )
 
-        upd = success & ~done
-        xyzlhw = torch.where(upd[:, None], xyzlhw + mean_transform, xyzlhw)
-        prev_ss = torch.where(upd[:, None], new_ss, prev_ss)
-        fail = torch.where(done, fail, torch.where(success, 0, fail + 1))
-        need_update = need_update | upd
-        new_done = done | (fail >= cfg.fail_limit)
-        ss = torch.where(done[:, None], ss, new_ss)
-        prev_success = torch.where(done, prev_success, success)
-        done = new_done
-
-    # final dims clamp (box_fusion.py:716-720), applied only when fused
-    fused = torch.cat([xyzlhw[:, :3], torch.clamp(xyzlhw[:, 3:], min=0.01)], dim=-1)
-    return torch.where(need_update[:, None], fused, xyzlhw0), need_update & active
+    fused, need_update, _ = search_loop(xyzlhw0, pst, active, fitness, cfg)
+    return fused, need_update

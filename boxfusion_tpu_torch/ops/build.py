@@ -9,9 +9,10 @@ is reused.  ``build_all`` starts one nvcc per source, all at once, and waits
 for them together.
 
 Flags, per source: all get sm_90a (Hopper), -O3 and IEEE division and square
-root (nvcc's default without --use_fast_math).  The fitness kernel also gets
--fmad=false, so that every multiply and add rounds on its own as in its plain
-PyTorch twin and in the TPU kernel it replaces -- its hull and clip tests
+root (nvcc's default without --use_fast_math).  The fitness kernel and the
+PST search kernel (which runs the same body, csrc/fitness_body.cuh) also get
+-fmad=false, so that every multiply and add rounds on its own as in the plain
+PyTorch twin and in the TPU kernel they replace -- the hull and clip tests
 compare against tolerances of 2e-5 x magnitude, where a fused multiply-add
 moves a boundary decision.  The two attention kernels are held to a
 tolerance, not to bit equality, and keep nvcc's default FMA contraction.
@@ -35,6 +36,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "fitness_kernel": "fitness_kernel.cu",
+    "pst_search_kernel": "pst_search_kernel.cu",
     "attention_kernel": "attention_kernel.cu",
     "tiled_attention_kernel": "tiled_attention_kernel.cu",
 }
@@ -46,6 +48,7 @@ _COMMON_FLAGS = (
 # kernel library name -> nvcc flags (part of the library's hash)
 NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
     "fitness_kernel": _COMMON_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
+    "pst_search_kernel": _COMMON_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
     "tiled_attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
 }

@@ -14,7 +14,12 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 seeded inputs; fail beyond the stated tolerance; time the
                 kernel, the twin and (attention) one library call with CUDA
                 events.  fitness_cells at the main path's 160 cells x 1024
-                particles; whole_seq_attention at the CLIP label batch
+                particles; pst_search (the whole PST search, one launch) at
+                16 objects x 10 view slots x 1024 particles, 20 iterations
+                and one, against pst_search_reference, timed beside the
+                plain version and the eager loop around fitness_cells (the
+                path before it, whose launches it counts), with registers,
+                shared memory and the cluster; whole_seq_attention at the CLIP label batch
                 (B = 128, T = 257, 16 x 64) in bfloat16 and float32, a ragged
                 float32 case, ViT-H's head width 80, CuTR's global shape
                 (T = 1024), and bfloat16 cases at the bfloat16 kernel's tails
@@ -38,7 +43,8 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 weights from a seed) over every detection's crop, 473 random
                 text features, the CLIP score boost.  The kernels' launch
                 counts are zeroed just before each run and read just after; a
-                kernel of the path that never launched fails the run.
+                kernel of the path that never launched fails the run, and so
+                does a fitness_cells launch (fusion is pst_search's).
   4. oracle  -- known-answer fusion: 60 frames, 6 boxes, oracle detections
                 with 2 cm noise must recover every ground-truth box within
                 0.15 m and fuse at least one.
@@ -69,7 +75,9 @@ Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
-(both attention entries also have "registers", "local_bytes",
+(pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
+"local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
+both attention entries also have "registers", "local_bytes",
 "smem_bytes" and "blocks_per_sm"; whole_seq_attention's "achieved_tb_s";
 tiled_attention's, timed in float32 at (12, 1024), its bfloat16 reading at
 (12, 4096) under "bf16"),
@@ -94,9 +102,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# The fitness and PST search kernels are built with -fmad=false: every
+# counted multiply, add, compare and select is one instruction, and the card
+# executes 132 SMs x 128 float32 lanes x 1.98 GHz = 33.5e12 of them a second.
+# PEAK_F32_FLOPS counts an FMA as two operations, so it is twice that rate.
+PEAK_F32_NO_FMA_OPS = PEAK_F32_FLOPS / 2
 
 FITNESS_TOL = 2e-3  # the JAX package's own Pallas-vs-XLA bound
 CELLS_OBJECTS, CELLS_VIEWS, PARTICLES = 16, 10, 1024  # max_fusions x max_views x pst_size
+SEARCH_ITERS = 20  # box_fusion.iters
+# pst_search against pst_search_reference: fused boxes within the port's
+# cross-stack PST bound after a full search (sums over particles in another
+# order and the projection rounded apart from torch's einsum flip particles
+# that tie particle 0, and the search is chaotic after that), and within
+# 1e-3 after one iteration; need_update equal.
+SEARCH_TOL, ONE_ITER_TOL = 5e-3, 1e-3
 
 # whole_seq_attention cases: name -> (B, T, heads, head width, dtype).  The
 # first is the main path's shape (the CLIP ViT-L/14 label batch) and the one
@@ -157,22 +177,22 @@ def phase_build() -> dict:
 
 
 # --------------------------------------------------------------------- phase 2
-def fitness_scene(device, n_obj=CELLS_OBJECTS, n_views=CELLS_VIEWS, n_particles=PARTICLES, seed=0):
-    """Arguments of fitness_cells at the main path's shapes.
+def pst_scene(device, n_obj=CELLS_OBJECTS, n_views=CELLS_VIEWS, n_particles=PARTICLES, seed=0,
+              offset=0.05):
+    """optimize_boxes' arguments (as a dict) at the main path's shapes.
 
     n_obj boxes, each observed from 3-7 views of a camera ring around it
     (projections of the true box), the remaining view slots padded the way
     the pipeline pads them (identity pose, zero corners, masked); the
-    candidate is the true box perturbed, as at a PST iteration.
+    initial box is the true box perturbed by N(0, offset) in every
+    parameter, as the mean of noisy member boxes is.
     """
     import numpy as np
     import torch
 
-    from boxfusion_tpu_torch.fusion.kernel import kernel_inputs, project_candidates
     from boxfusion_tpu_torch.fusion.pst import synthesize_pst
     from boxfusion_tpu_torch.geometry.boxes import box_corners
     from boxfusion_tpu_torch.geometry.projection import project_corners_to_image
-    from boxfusion_tpu_torch.ops.fitness_kernel import prepare_observed
 
     rng = np.random.RandomState(seed)
     K = np.array([[460.8, 0, 256], [0, 460.8, 192], [0, 0, 1]], np.float32)
@@ -185,7 +205,7 @@ def fitness_scene(device, n_obj=CELLS_OBJECTS, n_views=CELLS_VIEWS, n_particles=
     vmask = np.zeros((n_obj, n_views), np.float32)
     for o in range(n_obj):
         m = rng.randint(3, 8)  # about half the slots live
-        for i in range(m):
+        for i in range(min(m, n_views)):
             ang = rng.uniform(0, 2 * np.pi)
             eye = gt[o, :3] + np.array([3 * np.cos(ang), 3 * np.sin(ang), 0.8])
             fwd = gt[o, :3] - eye
@@ -195,15 +215,42 @@ def fitness_scene(device, n_obj=CELLS_OBJECTS, n_views=CELLS_VIEWS, n_particles=
             poses[o, i, :3, :3] = np.stack([right, np.cross(fwd, right), fwd], 1)
             poses[o, i, :3, 3] = eye
             vmask[o, i] = 1.0
-    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
     corners3d = box_corners(t(gt), t(R))[:, None].expand(n_obj, n_views, 8, 3)
     obs = project_corners_to_image(corners3d, t(poses), t(K), 384.0, 512.0)
     obs = torch.where(t(vmask)[..., None, None] > 0, obs, 0.0)  # padded slots: zeros
-    cand = gt + rng.normal(0, 0.05, gt.shape)
-    uv = project_candidates(t(cand), t(R), t(synthesize_pst(n_particles)), t(np.full((n_obj, 6), 0.1)),
-                            t(poses), t(K), 384.0, 512.0)
-    prep = prepare_observed(obs.reshape(n_obj * n_views, 8, 2))
-    return kernel_inputs(uv, prep, t(vmask) > 0)
+    init = gt + rng.normal(0, offset, gt.shape)
+    return dict(init_xyzlhw=t(init), init_R=t(R), pst=t(synthesize_pst(n_particles)), cam_poses=t(poses),
+                obs_corners=obs.contiguous(), view_mask=t(vmask),
+                obj_mask=torch.ones(n_obj, dtype=torch.bool, device=device), K=t(K), H=384.0, W=512.0)
+
+
+def search_args(scene) -> tuple:
+    """pst_search's arguments but cfg, from a pst_scene, as optimize_boxes
+    builds them: (init, R, pst, poses, K, view mask, object mask, prep, H, W)."""
+    from boxfusion_tpu_torch.ops.fitness_kernel import prepare_observed
+
+    N, V = scene["view_mask"].shape
+    prep = prepare_observed(scene["obs_corners"].reshape(N * V, 8, 2))
+    return (scene["init_xyzlhw"], scene["init_R"], scene["pst"], scene["cam_poses"], scene["K"],
+            scene["view_mask"] > 0, scene["obj_mask"], prep, scene["H"], scene["W"])
+
+
+def fitness_scene(device, n_obj=CELLS_OBJECTS, n_views=CELLS_VIEWS, n_particles=PARTICLES, seed=0):
+    """Arguments of fitness_cells at the main path's shapes: pst_scene's
+    objects, the candidates of its initial boxes at search size 0.1, as at a
+    PST iteration."""
+    import torch
+
+    from boxfusion_tpu_torch.fusion.kernel import kernel_inputs, project_candidates
+    from boxfusion_tpu_torch.ops.fitness_kernel import prepare_observed
+
+    s = pst_scene(device, n_obj, n_views, n_particles, seed)
+    ss = torch.full((n_obj, 6), 0.1, dtype=torch.float32, device=device)
+    uv = project_candidates(s["init_xyzlhw"], s["init_R"], s["pst"], ss, s["cam_poses"], s["K"],
+                            s["H"], s["W"])
+    prep = prepare_observed(s["obs_corners"].reshape(n_obj * n_views, 8, 2))
+    return kernel_inputs(uv, prep, s["view_mask"] > 0)
 
 
 def check_fitness(device) -> dict:
@@ -235,7 +282,7 @@ def check_fitness(device) -> dict:
     live = int((wmask[:, 0] > 0).sum())
     n_bytes = (live * 2 * 8 * P + C * (16 + 36 + 12 + 2) + C * P) * 4
     ops = operation_count(u, v, pvalid, wmask)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops, t_bytes = ops / PEAK_F32_NO_FMA_OPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
     rec = dict(
         name="fitness_cells", route="cuda",
         source="boxfusion_tpu_torch/csrc/fitness_kernel.cu",
@@ -244,6 +291,85 @@ def check_fitness(device) -> dict:
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=None,  # no single PyTorch call computes this function
+    )
+    print(json.dumps({"phase": "kernels", **rec}))
+    return rec
+
+
+def check_pst_search(device) -> dict:
+    """pst_search against pst_search_reference at the fitness scene (16
+    objects x 10 view slots x 1024 particles, 20 iterations) and after one
+    iteration; milliseconds of the kernel, of the plain version and of the
+    eager loop around fitness_cells (the path before this kernel), whose
+    fitness_cells launches are counted over one run; the bound from this
+    run's iterations and data."""
+    import torch
+
+    from boxfusion_tpu_torch.fusion.optimizer import PSTOptConfig
+    from boxfusion_tpu_torch.ops.fitness_kernel import (
+        fitness_cells,
+        fitness_cells_reference,
+        operation_count,
+    )
+    from boxfusion_tpu_torch.ops.pst_search import (
+        kernel_info,
+        operation_count as search_operations,
+        pst_search,
+        pst_search_reference,
+    )
+
+    args = search_args(pst_scene(device))
+    cfg = PSTOptConfig(iters=SEARCH_ITERS)
+    counted = dict(operations=0, cells=0)  # the fitness body's, over the plain run
+
+    def counting_cells(u, v, hull, planes, pvalid, area, wmask):
+        counted["operations"] += operation_count(u, v, pvalid, wmask)
+        counted["cells"] += int((wmask[:, 0] > 0).sum()) * u.shape[2]
+        return fitness_cells_reference(u, v, hull, planes, pvalid, area, wmask)
+
+    fused, upd, iters = pst_search(*args, cfg)
+    want, want_upd, want_iters = pst_search_reference(*args, cfg, cells=counting_cells)
+    one, one_upd, _ = pst_search(*args, PSTOptConfig(iters=1))
+    one_want, one_want_upd, _ = pst_search_reference(*args, PSTOptConfig(iters=1))
+    torch.cuda.synchronize()
+    if not torch.isfinite(fused).all() or fused.shape != want.shape:
+        raise RuntimeError("pst_search: non-finite output or wrong shape")
+    if not (torch.equal(upd, want_upd) and torch.equal(one_upd, one_want_upd)):
+        raise RuntimeError("pst_search: need_update differs from the plain version")
+    err = float((fused - want).abs().max())
+    err_one = float((one - one_want).abs().max())
+    if not (err <= SEARCH_TOL and err_one <= ONE_ITER_TOL):
+        raise RuntimeError(f"pst_search disagrees with its plain version: max |diff| {err} "
+                           f"(bound {SEARCH_TOL}), after one iteration {err_one} (bound {ONE_ITER_TOL})")
+
+    fitness_cells.launches = 0  # the eager path's launches, over one run
+    pst_search_reference(*args, cfg, cells=fitness_cells)
+    eager_launches = fitness_cells.launches
+    ms = cuda_ms(lambda: pst_search(*args, cfg), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: pst_search_reference(*args, cfg), reps=2, warmup=1)
+    eager_kernel_ms = cuda_ms(lambda: pst_search_reference(*args, cfg, cells=fitness_cells), reps=5, warmup=1)
+
+    init, R, pst, poses, K, vmask, active, prep, _, _ = args
+    P = pst.shape[0]
+    fitness_ops = counted["operations"] / max(counted["cells"], 1)
+    ops = search_operations(iters, vmask, P, fitness_ops)
+    inputs = (init, R, pst, poses, K, vmask, active, *prep.values())
+    n_bytes = sum(t.numel() * t.element_size() for t in inputs) + sum(
+        t.numel() * t.element_size() for t in (fused, upd, iters))
+    t_ops, t_bytes = ops / PEAK_F32_NO_FMA_OPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    rec = dict(
+        name="pst_search", route="cuda",
+        source="boxfusion_tpu_torch/csrc/pst_search_kernel.cu",
+        replaces="boxfusion_tpu/ops/fitness_kernel.py:344",
+        objects=int(init.shape[0]), view_slots=int(vmask.shape[1]), live_views=int(vmask.sum()),
+        particles=P, max_iters=SEARCH_ITERS, iterations=iters.tolist(),
+        plain_iterations=want_iters.tolist(), fitness_ops_per_live_particle=fitness_ops,
+        operations=ops, bytes=n_bytes, max_abs_err=err, one_iter_max_abs_err=err_one,
+        ms=ms, plain_ms=plain_ms, eager_kernel_ms=eager_kernel_ms,
+        eager_fitness_cells_launches=eager_launches,
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None,  # no single PyTorch call computes this function
+        **kernel_info(P),
     )
     print(json.dumps({"phase": "kernels", **rec}))
     return rec
@@ -472,7 +598,8 @@ def check_tiled_attention(device) -> dict:
 
 
 def phase_kernels(device) -> list:
-    return [check_fitness(device), check_attention(device), check_tiled_attention(device)]
+    return [check_fitness(device), check_pst_search(device), check_attention(device),
+            check_tiled_attention(device)]
 
 
 def phase_ablation(device) -> dict:
@@ -633,25 +760,35 @@ def run_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(384, 512)
     return rec, pipe
 
 
+def check_search_launches(launches: dict, what: str) -> None:
+    """The fusion stage went through pst_search, one launch per fused
+    batch, and never through the one-iteration fitness_cells."""
+    if launches["pst_search"] <= 0:
+        raise RuntimeError(f"{what}: pst_search was never launched")
+    if launches["fitness_cells"] != 0:
+        raise RuntimeError(f"{what}: fitness_cells ran {launches['fitness_cells']} times; "
+                           "the search belongs to pst_search")
+
+
 def phase_main(device) -> dict:
     """Both paths, each with the counts zeroed just before and read just
     after; returns the launch counts of the labelled run."""
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
 
-    kernels = (fitness_cells, whole_seq_attention)
+    kernels = (pst_search, fitness_cells, whole_seq_attention)
     plain, _ = run_main_path(device, kernels=kernels)
     print(json.dumps(plain))
-    if plain["launches"]["fitness_cells"] <= 0:
-        raise RuntimeError("main path: fitness_cells was never launched")
+    check_search_launches(plain["launches"], "main path")
     if plain["launches"]["whole_seq_attention"] != 0:
         raise RuntimeError("main path without a labeler launched whole_seq_attention")
 
     rec, _ = run_main_path(device, kernels=kernels, label=True)
     print(json.dumps(rec))
-    for name, n in rec["launches"].items():
-        if n <= 0:
-            raise RuntimeError(f"labelled main path: {name} was never launched")
+    check_search_launches(rec["launches"], "labelled main path")
+    if rec["launches"]["whole_seq_attention"] <= 0:
+        raise RuntimeError("labelled main path: whole_seq_attention was never launched")
     if rec["launches"]["whole_seq_attention"] != rec["clip"]["layers"] * rec["labelled_keyframes"]:
         raise RuntimeError("labelled main path: not one attention launch per tower block")
     return rec
@@ -960,21 +1097,21 @@ def phase_device_main(device) -> dict:
     counts of the labelled run."""
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
     from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
 
-    kernels = (fitness_cells, whole_seq_attention, tiled_attention)
+    kernels = (pst_search, fitness_cells, whole_seq_attention, tiled_attention)
     plain, _ = run_device_main_path(device, kernels=kernels)
     print(json.dumps(plain))
-    if plain["launches"]["fitness_cells"] <= 0:
-        raise RuntimeError("device main path: fitness_cells was never launched")
+    check_search_launches(plain["launches"], "device main path")
     if plain["launches"]["whole_seq_attention"] != 0:
         raise RuntimeError("device main path without a labeler launched whole_seq_attention")
 
     rec, _ = run_device_main_path(device, kernels=kernels, label=True)
     print(json.dumps(rec))
-    for name in ("fitness_cells", "whole_seq_attention"):
-        if rec["launches"][name] <= 0:
-            raise RuntimeError(f"labelled device main path: {name} was never launched")
+    check_search_launches(rec["launches"], "labelled device main path")
+    if rec["launches"]["whole_seq_attention"] <= 0:
+        raise RuntimeError("labelled device main path: whole_seq_attention was never launched")
     if rec["launches"]["whole_seq_attention"] != 24 * rec["keyframes"]:
         raise RuntimeError("labelled device main path: not one attention launch per tower block")
 
@@ -1018,14 +1155,21 @@ def main() -> int:
     log("phase 7: device engine, main path at full width, without and with labels")
     drec = phase_device_main(device)
 
-    # launches: each kernel's count over the main path that runs it -- the
-    # labelled host-engine run plus the labelled device-engine run for the
-    # first two, the ablation for the third
-    for name in ("fitness_cells", "whole_seq_attention"):
+    # launches: each kernel's count over the path that runs it -- the
+    # labelled host-engine run plus the labelled device-engine run for
+    # pst_search and whole_seq_attention; phase 2's run of the eager loop
+    # (multiview_fitness's path, off the main path) for fitness_cells; the
+    # ablation for tiled_attention
+    launches["fitness_cells"] = next(r for r in krecs if r["name"] == "pst_search")[
+        "eager_fitness_cells_launches"]
+    for name in ("pst_search", "whole_seq_attention"):
         launches[name] = mrec["launches"][name] + drec["launches"][name]
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = {"fitness_cells": (), "whole_seq_attention": ATTENTION_RECORD_KEYS,
+    extra = {"fitness_cells": (),
+             "pst_search": ("eager_kernel_ms", "one_iter_max_abs_err", "registers", "local_bytes",
+                            "smem_bytes", "threads", "cluster", "max_active_clusters"),
+             "whole_seq_attention": ATTENTION_RECORD_KEYS,
              "tiled_attention": KERNEL_INFO_KEYS + ("bf16",)}
     kernels = [{**{k: rec[k] for k in keys + extra[rec["name"]]}, "launches": launches[rec["name"]]}
                for rec in krecs]

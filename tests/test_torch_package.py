@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     for new in ("cli", "utils.io", "ops.attention_kernel", "models.clip.model",
                 "models.clip.head", "models.clip.convert", "models.clip.text",
                 "runtime.device_state", "runtime.device_step", "runtime.device_pipeline",
-                "utils.checkpoint", "tools.attention_ablation"):
+                "utils.checkpoint", "tools.attention_ablation", "ops.pst_search"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 
@@ -134,6 +134,9 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert "use_fast_math" not in attn and set(build.NVCC_FLAGS) == set(build.SOURCES)
     assert build.library_path("attention_kernel").name.startswith("libattention_kernel-")
     assert (build.CSRC_DIR / build.SOURCES["attention_kernel"]).exists()
+    # the search kernel runs the fitness body: the same flags, -fmad=false
+    assert " ".join(build.NVCC_FLAGS["pst_search_kernel"]) == flags
+    assert (build.CSRC_DIR / build.SOURCES["pst_search_kernel"]).exists()
     tiled = " ".join(build.NVCC_FLAGS["tiled_attention_kernel"])
     assert "arch=compute_90a,code=sm_90a" in tiled and "fmad" not in tiled
     assert "use_fast_math" not in tiled
