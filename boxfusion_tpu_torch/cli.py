@@ -1,6 +1,6 @@
 """Command-line entry point: run online detection + fusion on a sequence.
 
-Port of ``boxfusion_tpu/cli.py`` (host and device engines).  Capability target: the
+Port of ``boxfusion_tpu/cli.py``.  Capability target: the
 reference's ``demo.py`` entry point (demo.py:389-467): same positional
 dataset argument and flags, same config handling (including --seq datadir
 rewriting, demo.py:416-431, and the skip-if-output-exists early exit,
@@ -12,15 +12,20 @@ Usage:
   python -m boxfusion_tpu_torch.cli synthetic --config config/ca1m.yaml
   python -m boxfusion_tpu_torch.cli synthetic --config config/ca1m.yaml \
       --engine device --capacity 48
+  python -m boxfusion_tpu_torch.cli ca1m --config config/ca1m.yaml \
+      --engine fused --chunk 8
 
 Everything runs on ``--device`` (default: the GPU; the run raises if there is
 none -- ``--device cpu`` asks for the plain PyTorch path).  ``--engine host``
 mirrors the reference's host bookkeeping; ``--engine device`` keeps the world,
 the manager's lists and the observation bank on the device
 (runtime/device_pipeline.py) and can snapshot and resume them
-(``--save-state`` / ``--restore-state`` / ``--restore-count``).  The fused
-engine (``--engine fused``, ``--chunk``) is not part of this package yet
-(ROADMAP.md section A.5) and is refused by name.
+(``--save-state`` / ``--restore-state`` / ``--restore-count``).  ``--engine
+fused`` is the device engine with one upload per keyframe, from which the
+device packages, detects, labels, associates and fuses
+(runtime/fused.py); ``--chunk N`` sends N keyframes per upload.  It needs a
+CuTR detector: the ``synthetic`` sequence, whose detector is an oracle,
+falls back to the device engine and says so.
 """
 from __future__ import annotations
 
@@ -54,26 +59,33 @@ def build_argparser() -> argparse.ArgumentParser:
         "--engine",
         default="host",
         choices=["host", "device", "fused"],
-        help="'device' keeps association/fusion state on the device, with a "
-        "separate detector pass; 'host' mirrors the reference's host "
-        "bookkeeping; 'fused' is not part of this package yet (ROADMAP.md "
-        "section A.5) and is refused",
+        help="'fused' uploads each keyframe as one packed buffer and packages, "
+        "detects, labels, associates and fuses it on the device "
+        "(runtime/fused.py); 'device' keeps association/fusion state on the "
+        "device, with a separate detector pass; 'host' mirrors the "
+        "reference's host bookkeeping",
     )
     p.add_argument("--verbose", action="store_true")
     p.add_argument(
         "--capacity", default=512, type=int,
-        help="world-state slots for the device engine (capacity overflow "
-        "drops lowest-priority detections, counted in stats)",
+        help="world-state slots for the device/fused engines (capacity "
+        "overflow drops lowest-priority detections, counted in stats)",
+    )
+    p.add_argument(
+        "--chunk", default=1, type=int,
+        help="fused engine: N consecutive keyframes per upload (identical "
+        "decisions, N keyframes of result latency; 1 = lowest-latency live "
+        "mode)",
     )
     p.add_argument(
         "--save-state", default=None, metavar="PATH",
-        help="device engine: snapshot the full pipeline state after the run "
-        "(resume a partially-streamed sequence with --restore-state)",
+        help="device/fused engines: snapshot the full pipeline state after "
+        "the run (resume a partially-streamed sequence with --restore-state)",
     )
     p.add_argument(
         "--restore-state", default=None, metavar="PATH",
-        help="device engine: restore a pipeline snapshot before streaming "
-        "(pair with --restore-count for the frame counter)",
+        help="device/fused engines: restore a pipeline snapshot before "
+        "streaming (pair with --restore-count for the frame counter)",
     )
     p.add_argument("--restore-count", default=0, type=int,
                    help="frame counter to resume from with --restore-state")
@@ -93,12 +105,6 @@ def main(argv=None) -> int:
     if not os.path.exists(args.config):
         raise ValueError("Missing config path")
     cfg = load_config(args.config)
-
-    if args.engine == "fused":
-        raise NotImplementedError(
-            "--engine fused (runtime/fused.py, with --chunk) is not part of "
-            "boxfusion_tpu_torch yet (ROADMAP.md section A.5); use --engine device"
-        )
 
     if cfg["vis"]["rerun"]:
         raise NotImplementedError(
@@ -194,7 +200,11 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001
             print(f"[cli] open-vocab labeling disabled: {e}")
 
-    if args.engine == "device":
+    if args.chunk > 1 and args.engine != "fused":
+        print(f"[cli] --chunk {args.chunk} only groups uploads on the fused "
+              f"engine; --engine {args.engine} ignores it")
+
+    if args.engine in ("device", "fused"):
         return _run_device_engine(args, cfg, dataset, detector, labeler, out_dir)
 
     from boxfusion_tpu_torch.runtime import OnlinePipeline
@@ -214,10 +224,22 @@ def main(argv=None) -> int:
 
 
 def _run_device_engine(args, cfg, dataset, detector, labeler, out_dir) -> int:
-    from boxfusion_tpu_torch.runtime import DevicePipeline
+    from boxfusion_tpu_torch.runtime import DevicePipeline, FusedDevicePipeline
 
-    pipe = DevicePipeline(cfg, detector, labeler=labeler, capacity=args.capacity,
-                          device=args.device)
+    engine_used = args.engine
+    if args.engine == "fused" and args.dataset_path.lower() == "synthetic":
+        print("[cli] fused engine needs a CuTR detector; synthetic "
+              "uses the oracle -- falling back to --engine device")
+        engine_used = "device"
+    if engine_used == "fused":
+        pipe = FusedDevicePipeline(
+            cfg, detector, labeler=labeler, capacity=args.capacity,
+            depth_scale=float(cfg["cam"]["png_depth_scale"]), device=args.device,
+            chunk=args.chunk,
+        )
+    else:
+        pipe = DevicePipeline(cfg, detector, labeler=labeler, capacity=args.capacity,
+                              device=args.device)
     if args.restore_state:
         pipe.restore_state(args.restore_state, count=args.restore_count)
         if args.restore_count:
@@ -234,7 +256,7 @@ def _run_device_engine(args, cfg, dataset, detector, labeler, out_dir) -> int:
     if args.save_state:
         pipe.save_state(args.save_state)
         print(f"[cli] saved pipeline state to {args.save_state} (frame {pipe.count})")
-    print(f"[cli] device engine: {len(out['scores'])} world boxes")
+    print(f"[cli] {engine_used} engine: {len(out['scores'])} world boxes")
     if out_dir and cfg["eval"]:
         import torch
 

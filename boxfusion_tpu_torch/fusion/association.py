@@ -111,7 +111,8 @@ def iou_block(
     # the lattice runs only on gated pairs: the gate forces 0 everywhere else
     gated = torch.nonzero(obb_intersect_mask(ca, cb)).reshape(-1)
     iou = torch.zeros(A * B, dtype=torch.float32, device=dev)
-    iou[gated] = obb_grid_iou_pairs(ca[gated], cb[gated], samples)
+    if gated.numel():  # the lattice takes no empty batch
+        iou[gated] = obb_grid_iou_pairs(ca[gated], cb[gated], samples)
     return iou.reshape(A, B).cpu().numpy()
 
 

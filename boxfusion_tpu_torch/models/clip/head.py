@@ -185,10 +185,12 @@ class OpenVocabLabeler:
         return self.set_tower(tower)
 
     def _encode(self, image: torch.Tensor, boxes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._encode_crops(_crop_normalize(image, boxes, self.cfg.dtype))
+
+    def _encode_crops(self, crops: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.tower is None:
             raise RuntimeError("the labeler has no image-tower weights: pass image_params, "
                                "call init_random() or set_tower()")
-        crops = _crop_normalize(image, boxes, self.cfg.dtype)
         feats = self.tower(crops)
         feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
         return feats, 100.0 * (feats @ self._tf.T)  # full float32
@@ -216,27 +218,58 @@ class OpenVocabLabeler:
         """
         dev = self.device
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        boxes_xyxy = torch.as_tensor(boxes_xyxy, dtype=torch.float32, device=dev)
-        scores = torch.as_tensor(scores, dtype=torch.float32, device=dev)
-        budget = min(int(budget), int(boxes_xyxy.shape[0]))
+        out = self.label_boost_lanes(image[None], torch.as_tensor(boxes_xyxy)[None],
+                                     torch.as_tensor(scores)[None], [hw], scale, coeff, budget)
+        return tuple(x[0] for x in out)
+
+    @torch.inference_mode()
+    def label_boost_lanes(self, images, boxes_xyxy, scores, hws, scale: float, coeff: float,
+                          budget: int = 32):
+        """``label_boost_device`` for N frames at once, with ONE tower call
+        over all N x ``budget`` crops (the batched engine's label stage).
+
+        Args:
+          images: (N, H, W, 3) in [0, 255], or a sequence of N such images.
+          boxes_xyxy: (N, K, 4); scores: (N, K), each row score-sorted.
+          hws: N actual (H, W) pairs, on the host.
+
+        Rows do not interact in the tower, so lane i's results are those of
+        ``label_boost_device`` on lane i alone, up to the rounding of a
+        matrix product at another batch size.
+
+        Returns (new_scores (N, K), categories (N, K) int32, feats
+        (N, budget, D), overflow (N,) int32).
+        """
+        dev = self.device
+        f32 = torch.float32
+        boxes_xyxy = torch.as_tensor(boxes_xyxy, dtype=f32, device=dev)
+        scores = torch.as_tensor(scores, dtype=f32, device=dev)
+        n, k = scores.shape
+        budget = min(int(budget), int(k))
         n_classes = self._tf.shape[0]
-        b = scale_boxes(boxes_xyxy[:budget], hw[0], hw[1], float(scale))
-        feats, sims = self._encode(image, b)  # sims: (budget, C)
+        crops = torch.cat([
+            _crop_normalize(torch.as_tensor(images[i], dtype=f32, device=dev),
+                            scale_boxes(boxes_xyxy[i, :budget], hws[i][0], hws[i][1], float(scale)),
+                            self.cfg.dtype)
+            for i in range(n)
+        ])
+        feats, sims = self._encode_crops(crops)  # sims: (n * budget, C)
+        sims = sims.reshape(n, budget, n_classes)
 
         # background column at sim_thres (tools/utils.py:488-494)
-        scored = torch.cat([sims, sims.new_full((sims.shape[0], 1), self.sim_thres)], dim=-1)
+        scored = torch.cat([sims, sims.new_full((n, budget, 1), self.sim_thres)], dim=-1)
         best = torch.argmax(scored, dim=-1)  # the first maximum among ties
         max_values = scored.max(dim=-1).values
         background = best == n_classes
 
-        boosted = scores[:budget] + float(coeff) * max_values / 100.0
+        boosted = scores[:, :budget] + float(coeff) * max_values / 100.0
         boosted = torch.where(background, -1e9, boosted)
         new_scores = scores.clone()
-        new_scores[:budget] = boosted
-        categories = torch.full((scores.shape[0],), n_classes, dtype=torch.int32, device=dev)
-        categories[:budget] = best.to(torch.int32)
-        overflow = (scores[budget:] > -1e8).sum().to(torch.int32)
-        return new_scores, categories, feats, overflow
+        new_scores[:, :budget] = boosted
+        categories = torch.full((n, k), n_classes, dtype=torch.int32, device=dev)
+        categories[:, :budget] = best.to(torch.int32)
+        overflow = (scores[:, budget:] > -1e8).sum(dim=-1).to(torch.int32)
+        return new_scores, categories, feats.reshape(n, budget, -1), overflow
 
     @torch.inference_mode()
     def __call__(self, image: np.ndarray, boxes: np.ndarray):

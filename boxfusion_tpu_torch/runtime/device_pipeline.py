@@ -170,7 +170,10 @@ class DevicePipeline:
     def _time(self, stage: str, t0: float) -> None:
         self.timings[stage] = self.timings.get(stage, 0.0) + time.perf_counter() - t0
 
-    def _run_step(self, step, *args) -> None:
+    def _run_step(self, step, *args, stage: Optional[str] = "step") -> None:
+        """``self.state = step(self.state, *args)``, its host reads counted,
+        its host-clock time added to ``timings[stage]`` (``stage=None``: the
+        step times its own stages), a failure held back for the next call."""
         t0 = time.perf_counter()
         reads0 = host_reads.count
         try:
@@ -179,7 +182,8 @@ class DevicePipeline:
             self._step_error = e
         finally:
             self.host_reads += host_reads.count - reads0
-            self._time("step", t0)
+            if stage is not None:
+                self._time(stage, t0)
 
     def _raise_step_error(self) -> None:
         if self._step_error is not None:

@@ -70,12 +70,39 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 counts, zeroed just before each run and read just after; then
                 one more unlabelled run with a synchronise around every stage
                 of the step, for the stage split only.
+  8. fused   -- FusedDevicePipeline on phase 7's configuration and frames
+                (depth in whole millimetres, so its u16 upload is lossless)
+                beside DevicePipeline in the same call: unlabelled at chunk 1
+                and 8, labelled with the fixed budget of 100 crops and with
+                label buckets (0, 32, 64, 96, 100) at chunk 1 and 8.  Held
+                equal (integers exact, floats 1e-6): fused to device,
+                unlabelled and at the fixed budget; chunk 8 to chunk 1.  The
+                buckets against the fixed budget run the tower at another
+                batch: the bf16 difference is printed, and the same
+                comparison at float32 (8 frames) is held (LABEL_BOUNDS:
+                decisions equal, scores and boxes 1e-4).  Keyframes/s, host reads per
+                keyframe, label crops and the label stage's synced ms per
+                keyframe, world and fused boxes, launches per run.
+  9. batched -- BatchedPipeline, 4 lanes (seeds 0-3), packed, unlabelled and
+                labelled (one tower call over 4 x 100 crops a round):
+                keyframes/s, per-lane frames/s, host reads per round, the
+                CLIP batch whole_seq_attention saw.  Each lane held equal to
+                a DevicePipeline run of its frames fed the detections that
+                lane's step took; against a plain single-sequence
+                device-engine run (CuTR at batch 1, the tower at 100 crops)
+                the bf16 difference is printed.
+ 10. eval    -- ``python -m boxfusion_tpu_torch.eval --config
+                config/ca1m.yaml --synthetic 2`` as a subprocess must print
+                AP@0.25 = AP@0.50 = 1.0000; evaluate_sequences_batched over 4
+                synthetic sequences with CuTR-768 must return and write its
+                4 pickles.
 
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
-(pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
+(pst_search's and whole_seq_attention's also "launches_by_path", the count
+of each path of phases 3, 7, 8 and 9; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
 "local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
 both attention entries also have "registers", "local_bytes",
 "smem_bytes" and "blocks_per_sm"; whole_seq_attention's "achieved_tb_s";
@@ -390,17 +417,61 @@ def attention_tolerance(dtype):
     return (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 2.0 ** -7)
 
 
-def attention_case(device, case: str, seed: int = 0):
-    """(q, k, v, heads, sm_scale) of one ATTENTION_CASES entry: unit-variance
-    values from a seeded generator, as the three chunk views of one
-    (B, T, 3D) tensor -- the strided views the CLIP block hands the wrapper."""
+def attention_inputs(device, B, T, heads, hd, dtype, seed: int = 0):
+    """(q, k, v, heads, sm_scale) at one shape: unit-variance values from a
+    seeded generator, as the three chunk views of one (B, T, 3D) tensor --
+    the strided views the CLIP block hands the wrapper."""
     import torch
 
-    B, T, heads, hd, dtype = ATTENTION_CASES[case]
     gen = torch.Generator(device=device).manual_seed(seed)
     qkv = torch.randn(B, T, 3 * heads * hd, generator=gen, device=device).to(getattr(torch, dtype))
     q, k, v = qkv.chunk(3, dim=-1)
     return q, k, v, heads, hd ** -0.5
+
+
+def attention_case(device, case: str, seed: int = 0):
+    """attention_inputs of one ATTENTION_CASES entry."""
+    return attention_inputs(device, *ATTENTION_CASES[case], seed=seed)
+
+
+def hold_attention(device, B, T, heads, hd, dtype, what: str) -> float:
+    """whole_seq_attention against its plain twin at one shape, within
+    attention_tolerance; returns the largest difference."""
+    import torch
+
+    from boxfusion_tpu_torch.ops.attention_kernel import (
+        whole_seq_attention,
+        whole_seq_attention_reference,
+    )
+
+    q, k, v, _, scale = attention_inputs(device, B, T, heads, hd, dtype)
+    got = whole_seq_attention(q, k, v, heads, scale)
+    want = whole_seq_attention_reference(q, k, v, heads, scale)
+    sync(device)
+    if got.dtype != q.dtype or got.shape != q.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"whole_seq_attention[{what}]: bad dtype, shape or non-finite output")
+    atol, rtol = attention_tolerance(q.dtype)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if float((diff - (atol + rtol * want.float().abs())).max()) > 0:
+        raise RuntimeError(f"whole_seq_attention[{what}] disagrees with its plain twin: "
+                           f"max |diff| {err} beyond atol {atol} + rtol {rtol}")
+    return err
+
+
+def check_path_attention(device, shapes, what: str) -> list:
+    """Hold whole_seq_attention against its twin at every (B, T, heads,
+    head width, dtype) a path gave it (AttentionBatches.shapes), on fresh
+    unit-variance inputs; one record per shape."""
+    import torch
+
+    recs = []
+    for shape in sorted(shapes):
+        err = hold_attention(device, *shape, what=f"{what} {shape}")
+        atol, rtol = attention_tolerance(getattr(torch, shape[4]))
+        recs.append(dict(zip(("B", "T", "heads", "head_dim", "dtype"), shape), max_abs_err=err,
+                         atol=atol, rtol=rtol))
+    return recs
 
 
 def check_attention(device) -> dict:
@@ -416,18 +487,9 @@ def check_attention(device) -> dict:
     main = None
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     for case, (B, T, heads, hd, dtype) in ATTENTION_CASES.items():
+        err = hold_attention(device, B, T, heads, hd, dtype, case)
         q, k, v, _, scale = attention_case(device, case)
-        got = whole_seq_attention(q, k, v, heads, scale)
-        want = whole_seq_attention_reference(q, k, v, heads, scale)
-        torch.cuda.synchronize()
-        if got.dtype != q.dtype or got.shape != q.shape or not torch.isfinite(got).all():
-            raise RuntimeError(f"whole_seq_attention[{case}]: bad dtype, shape or non-finite output")
         atol, rtol = attention_tolerance(q.dtype)
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        if float((diff - (atol + rtol * want.float().abs())).max()) > 0:
-            raise RuntimeError(f"whole_seq_attention[{case}] disagrees with its plain twin: "
-                               f"max |diff| {err} beyond atol {atol} + rtol {rtol}")
         rec = dict(phase="kernels", name="whole_seq_attention", case=case, B=B, T=T, heads=heads,
                    head_dim=hd, dtype=dtype, max_abs_err=err, atol=atol, rtol=rtol)
         if case in ("clip_l14_f32", MAIN_ATTENTION_CASE):
@@ -1120,6 +1182,601 @@ def phase_device_main(device) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------- phase 8
+def quantised(frames):
+    """Frames whose depth is whole millimetres: the fused engine's u16
+    transfer is then lossless and every engine sees the same input."""
+    import dataclasses
+
+    import numpy as np
+
+    return [dataclasses.replace(f, depth=(np.round(f.depth * 1000.0) / 1000.0).astype(np.float32))
+            for f in frames]
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def main_path_frames(seed=0, n_frames=24, image_hw=(384, 512)):
+    from boxfusion_tpu_torch.data.synthetic import SyntheticSequence
+
+    return quantised(SyntheticSequence(n_frames=n_frames, n_boxes=8, image_hw=image_hw, seed=seed))
+
+
+def engine_config(label=False, bucketing=True):
+    """Phase 7's configuration: the label budget covers the detector's top-100
+    rows, so the fixed budget labels 100 crops and the buckets are
+    (0, 32, 64, 96, 100)."""
+    cfg = main_path_config()
+    cfg["detection"]._data["max_label_boxes"] = 128
+    cfg["detection"]._data["label_bucketing"] = bucketing
+    if label:
+        cfg["box_fusion"]._data["clip_sim_coeff"] = 1.0  # config/cubicle.yaml
+    return cfg
+
+
+def make_main_model(device, dtype="bfloat16", dimension=768):
+    from boxfusion_tpu_torch.models.cutr import make_cutr
+
+    model = make_cutr(dimension, depth_model=True, device=device, seed=0, dtype=dtype)
+    lift_class_bias(model)
+    return model
+
+
+class AttentionBatches:
+    """Records the batch (sequences) of every whole_seq_attention call the
+    CLIP tower makes, and the set of its shapes (B, T, heads, head width,
+    dtype), by wrapping the name the tower calls."""
+
+    def __init__(self):
+        self.batches, self.shapes = [], set()
+
+    def __enter__(self):
+        from boxfusion_tpu_torch.models.clip import model as clip_model
+
+        self.saved = fn = clip_model.whole_seq_attention
+
+        def recorded(q, k, v, heads, sm_scale):
+            B, T, D = (int(x) for x in q.shape)
+            self.batches.append(B)
+            self.shapes.add((B, T, int(heads), D // int(heads), str(q.dtype).split(".")[-1]))
+            return fn(q, k, v, heads=heads, sm_scale=sm_scale)
+
+        clip_model.whole_seq_attention = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from boxfusion_tpu_torch.models.clip import model as clip_model
+
+        clip_model.whole_seq_attention = self.saved
+
+
+class LabelClock:
+    """Crops per labelled keyframe (the rows each frame of a
+    label_boost_lanes call sent through the tower) and, with ``synced``, the
+    label stage's milliseconds with a synchronise before and after
+    fused.label_boost_core (its bucket read included)."""
+
+    def __init__(self, labeler, synced=False):
+        self.labeler, self.synced, self.device = labeler, synced, labeler.device
+        self.crops, self.seconds, self.calls = [], 0.0, 0
+
+    def __enter__(self):
+        from boxfusion_tpu_torch.runtime import fused
+
+        real_boost, real_core = self.labeler.label_boost_lanes, fused.label_boost_core
+
+        def boost(images, boxes, scores, hws, scale, coeff, budget=32):
+            n, k = boxes.shape[:2]
+            self.crops.extend([min(int(budget), int(k))] * int(n))
+            return real_boost(images, boxes, scores, hws, scale, coeff, budget=budget)
+
+        def core(*args, **kw):
+            if self.synced:
+                sync(self.device)
+            t0 = time.perf_counter()
+            out = real_core(*args, **kw)
+            if self.synced:
+                sync(self.device)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        self.labeler.label_boost_lanes = boost
+        self.saved_core, fused.label_boost_core = real_core, core
+        return self
+
+    def __exit__(self, *exc):
+        from boxfusion_tpu_torch.runtime import fused
+
+        del self.labeler.label_boost_lanes  # back to the class's method
+        fused.label_boost_core = self.saved_core
+
+
+def world_diff(a: dict, b: dict) -> dict:
+    """What differs between two exported worlds: the decisions (world count,
+    init ids, fusion flags and lists, categories, stats) and the largest
+    score and box difference where the decisions agree."""
+    import numpy as np
+
+    same = (len(a["scores"]) == len(b["scores"]) and a["fusion_list"] == b["fusion_list"]
+            and a["stats"] == b["stats"]
+            and all(np.array_equal(a[k], b[k]) for k in
+                    ("init_id", "fusion_flag", "valid_num", "category", "frame_id")))
+    out = dict(decisions_equal=bool(same), world_boxes=[len(a["scores"]), len(b["scores"])],
+               fused_boxes=[int(a["fusion_flag"].sum()), int(b["fusion_flag"].sum())])
+    if same and len(a["scores"]):
+        box = np.abs(a["xyzlhw"] - b["xyzlhw"]).max(axis=1)
+        fused = np.asarray(a["fusion_flag"], bool)
+        out["max_score_diff"] = float(np.abs(a["scores"] - b["scores"]).max())
+        out["max_box_diff_unfused"] = float(box[~fused].max()) if (~fused).any() else 0.0
+        out["max_box_diff_fused"] = float(box[fused].max()) if fused.any() else 0.0
+    return out
+
+
+# hold_close's bounds for the same detections labelled by the tower at another
+# batch: scores within the CPU tests' 1e-4 (tests/test_torch_device_pipeline.py),
+# boxes within 1e-4, fused or not (the tower moves no box).
+LABEL_BOUNDS = dict(score_tol=1e-4, unfused_tol=1e-4, fused_tol=1e-4)
+
+
+def hold_close(a: dict, b: dict, what: str, score_tol, unfused_tol, fused_tol) -> dict:
+    """Decisions identical (world count, init ids, fusion flags and lists,
+    categories, counters); scores, boxes never fused and fused boxes within
+    their bounds."""
+    d = world_diff(a, b)
+    if not d["decisions_equal"] or d.get("max_score_diff", 0.0) > score_tol \
+            or d.get("max_box_diff_unfused", 0.0) > unfused_tol \
+            or d.get("max_box_diff_fused", 0.0) > fused_tol:
+        raise RuntimeError(f"{what}: {d}")
+    return d
+
+
+def drive_engine(kind, device, model, frames, cfg, labeler=None, chunk=1, kernels=(),
+                 label_clock=None, capacity=2048):
+    """One timed run of the device ("device") or fused ("fused") engine over
+    ``frames`` at gap 1, the kernels' counts zeroed just before and read just
+    after; returns (record, world)."""
+    import contextlib
+
+    import numpy as np
+
+    from boxfusion_tpu_torch.runtime import CuTRDetector, DevicePipeline, FusedDevicePipeline
+
+    if kind == "device":
+        det = CuTRDetector(model, device=device, device_output=True, export_image=labeler is not None)
+        pipe = DevicePipeline(cfg, det, labeler=labeler, capacity=capacity, device=device)
+    else:
+        pipe = FusedDevicePipeline(cfg, CuTRDetector(model, device=device), labeler=labeler,
+                                   capacity=capacity, device=device, chunk=chunk)
+    sync(device)
+    for k in kernels:
+        k.launches = 0
+    with AttentionBatches() as att, (label_clock or contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        world = pipe.run(frames, gap=1)
+        seconds = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    st = world["stats"]
+    n_kf = st["keyframes"]
+    if len(world["scores"]) == 0 or not np.isfinite(world["xyzlhw"]).all():
+        raise RuntimeError(f"{kind} engine: world has {len(world['scores'])} boxes or is not finite")
+    if st["dropped_world_capacity"] or st["dropped_obs_capacity"] or st["label_overflow"]:
+        raise RuntimeError(f"{kind} engine: dropped or unlabelled rows: {st}")
+    rec = dict(
+        engine=kind, labelled=labeler is not None, chunk=chunk if kind == "fused" else None,
+        label_bucketing=bool(cfg["detection"]["label_bucketing"]) if labeler is not None else None,
+        keyframes=n_kf, seconds=seconds, keyframes_per_s=n_kf / seconds,
+        ms_per_keyframe=1e3 * seconds / n_kf, host_reads_per_keyframe=pipe.host_reads / n_kf,
+        stage_ms_per_keyframe={k: 1e3 * v / n_kf for k, v in sorted(pipe.timings.items())},
+        world_boxes=len(world["scores"]), fused_boxes=int(world["fusion_flag"].sum()),
+        launches=launches, clip_batches=sorted(set(att.batches)),
+        attention_shapes=sorted(att.shapes),
+    )
+    if label_clock is not None:
+        rec["label_crops_per_keyframe"] = float(np.mean(label_clock.crops)) if label_clock.crops else 0.0
+        if label_clock.synced:
+            rec["synced_label_ms_per_keyframe"] = 1e3 * label_clock.seconds / n_kf
+    return rec, world
+
+
+def check_path_launches(rec: dict, what: str) -> None:
+    """The path went through pst_search (never fitness_cells) and, when
+    labelled, through whole_seq_attention, which an unlabelled path never
+    launches."""
+    check_search_launches(rec["launches"], what)
+    att = rec["launches"]["whole_seq_attention"]
+    if rec["labelled"] and att <= 0:
+        raise RuntimeError(f"{what}: whole_seq_attention was never launched")
+    if not rec["labelled"] and att != 0:
+        raise RuntimeError(f"{what}: launched whole_seq_attention without a labeler")
+
+
+def phase_fused(device, dimension=768, clip_cfg=None, n_frames=24, image_hw=(384, 512),
+                f32_frames=8) -> dict:
+    """FusedDevicePipeline at full width beside the device engine in the same
+    call, on phase 7's 24 frames with depth quantised to whole millimetres:
+    unlabelled at chunk 1 and 8 (both equal to the device engine), labelled
+    with the fixed budget (equal to the labelled device engine), with label
+    buckets at chunk 1 and 8 (equal to each other; against the fixed budget
+    the tower runs at another batch, so the difference is printed), one
+    synced run each way for the label stage's milliseconds, the bucket
+    rule held at float32 on 8 frames, and whole_seq_attention held against
+    its twin at every shape these runs gave it.  Returns the launch counts
+    per path."""
+    import dataclasses
+
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+
+    t_phase = time.perf_counter()
+    kernels = (pst_search, fitness_cells, whole_seq_attention)
+    clip_cfg = clip_cfg or clip_l14_config()
+    model = make_main_model(device, dimension=dimension)
+    labeler = make_labeler(device, clip_cfg)
+    frames = main_path_frames(n_frames=n_frames, image_hw=image_hw)
+    # warm both engines (allocator, library handles) on 3 frames
+    for kind in ("device", "fused"):
+        drive_engine(kind, device, model, frames[:3], engine_config(True), labeler=labeler)
+
+    def run(name, kind, label=False, bucketing=True, chunk=1, synced=False, frames=frames,
+            labeler=labeler, model=model):
+        clock = LabelClock(labeler, synced=synced) if label else None
+        rec, world = drive_engine(kind, device, model, frames, engine_config(label, bucketing),
+                                  labeler=labeler if label else None, chunk=chunk, kernels=kernels,
+                                  label_clock=clock)
+        rec = dict(phase="fused", run=name, **rec)
+        check_path_launches(rec, f"fused phase, {name}")
+        print(json.dumps(rec))
+        return rec, world
+
+    recs, worlds = {}, {}
+    for name, kw in (("device", dict(kind="device")),
+                     ("fused_c1", dict(kind="fused")),
+                     ("fused_c8", dict(kind="fused", chunk=8)),
+                     ("device_labelled", dict(kind="device", label=True)),
+                     ("fused_labelled_fixed_c1", dict(kind="fused", label=True, bucketing=False)),
+                     ("fused_labelled_c1", dict(kind="fused", label=True)),
+                     ("fused_labelled_c8", dict(kind="fused", label=True, chunk=8)),
+                     ("fused_labelled_fixed_synced", dict(kind="fused", label=True, bucketing=False,
+                                                          synced=True)),
+                     ("fused_labelled_synced", dict(kind="fused", label=True, synced=True))):
+        recs[name], worlds[name] = run(name, **kw)
+
+    # equal where the shapes are the same
+    _worlds_equal(worlds["fused_c1"], worlds["device"], "fused chunk 1 vs device engine")
+    _worlds_equal(worlds["fused_c8"], worlds["fused_c1"], "fused chunk 8 vs chunk 1")
+    _worlds_equal(worlds["fused_labelled_fixed_c1"], worlds["device_labelled"],
+                  "labelled fused (fixed budget) vs labelled device engine")
+    _worlds_equal(worlds["fused_labelled_c8"], worlds["fused_labelled_c1"],
+                  "labelled fused chunk 8 vs chunk 1")
+    # the tower at the bucket's batch against the full budget's, bf16
+    bf16_diff = world_diff(worlds["fused_labelled_c1"], worlds["fused_labelled_fixed_c1"])
+
+    # the same rule at float32 (CuTR and the tower), 8 frames
+    f32_model, f32_labeler = make_main_model(device, "float32", dimension), make_labeler(
+        device, dataclasses.replace(clip_cfg, dtype="float32"))
+    short = frames[:f32_frames]
+    f32_recs, f32 = {}, {}
+    for b in (False, True):
+        f32_recs[b], f32[b] = run(f"f32_labelled_bucketing_{b}", "fused", label=True, bucketing=b,
+                                  frames=short, labeler=f32_labeler, model=f32_model)
+    f32_diff = hold_close(f32[True], f32[False], "float32: label buckets vs the fixed budget",
+                          **LABEL_BOUNDS)
+    del f32_model, f32_labeler
+    # the kernel against its twin at every shape these paths gave it
+    attention = check_path_attention(
+        device, {tuple(x) for r in [*recs.values(), *f32_recs.values()] for x in r["attention_shapes"]},
+        "fused phase")
+
+    summary = dict(
+        phase="fused", summary=True, seconds=time.perf_counter() - t_phase,
+        keyframes_per_s={k: recs[k]["keyframes_per_s"] for k in recs},
+        host_reads_per_keyframe={k: recs[k]["host_reads_per_keyframe"] for k in recs},
+        synced_label_ms_per_keyframe={
+            "buckets": recs["fused_labelled_synced"]["synced_label_ms_per_keyframe"],
+            "fixed_budget": recs["fused_labelled_fixed_synced"]["synced_label_ms_per_keyframe"]},
+        label_crops_per_keyframe={
+            "buckets": recs["fused_labelled_synced"]["label_crops_per_keyframe"],
+            "fixed_budget": recs["fused_labelled_fixed_synced"]["label_crops_per_keyframe"]},
+        equal=["fused_c1 = device", "fused_c8 = fused_c1", "fused_labelled_fixed_c1 = device_labelled",
+               "fused_labelled_c8 = fused_labelled_c1"],
+        bf16_buckets_vs_fixed=bf16_diff, f32_buckets_vs_fixed=f32_diff,
+        attention_vs_twin=attention,
+    )
+    print(json.dumps(summary))
+    return {k: recs[k]["launches"] for k in recs}
+
+
+# --------------------------------------------------------------------- phase 9
+# CuTR's lanes, held before the search (where rounding is not yet chaotic),
+# each row within tol + tol x |value| of its partner, the 2D boxes in units
+# of the image's longer side (a pixel coordinate near 0 is no more precise
+# than one near 512).  LANE_SAME_TOL: lane i of the mixed batch against
+# lane 0 of a batch of frame i repeated -- the same shapes, so only a lane
+# leaking into another could move a row.  LANE_F32_TOL: float32 at batch N
+# against batch 1, where the products run at another M: scores 1e-4; boxes
+# 1e-3, since the decoder refines each box six times through deformable
+# sampling at positions the box itself sets (measured on the card: 0.098 px
+# and 6.0e-4 m in one lane of four, scores 3.0e-5).  The boosted scores of
+# the label stage are held at the scores' bound.
+LANE_ROW_KEYS = ("scores", "pred_boxes", "boxes3d")
+LANE_SAME_TOL = dict.fromkeys(LANE_ROW_KEYS, 1e-6)
+LANE_F32_TOL = dict(scores=1e-4, pred_boxes=1e-3, boxes3d=1e-3)
+
+
+def cutr_lanes(model, frames, device):
+    """CuTR on ``frames`` stacked as one batch of N and one at a time:
+    (stacked FrameBatch, the batch-N output, the N batch-1 outputs)."""
+    import torch
+
+    from boxfusion_tpu_torch.data.preprocess import Preprocessor
+    from boxfusion_tpu_torch.runtime.batched import _stack
+
+    pre = Preprocessor(device=device)
+    batches = [pre(f.image, f.depth, f.K, f.T_gravity)[0] for f in frames]
+    with torch.inference_mode():
+        stacked = _stack(batches)
+        return stacked, model(stacked), [model(b) for b in batches]
+
+
+def rows_apart(a: dict, b: dict, tol: dict, side: float) -> dict:
+    """One lane's top-k rows (``a``) against another run's (``b``), each
+    row paired with its nearest partner (a near-tie may swap two rows'
+    ranks): the largest difference of each of LANE_ROW_KEYS over the pairs
+    (2D boxes in pixels), the worst pair in units of tol[key] + tol[key] x
+    |value| with the 2D boxes divided by the image's longer ``side`` (both
+    ways; at most 1 when within), and the rows whose partner is not at
+    their own rank."""
+    import torch
+
+    def rows(o, scale):
+        return torch.cat([o[k].float().reshape(o[k].shape[0], -1) * scale[k] for k in LANE_ROW_KEYS], 1)
+
+    unit = {k: 1.0 / side if k == "pred_boxes" else 1.0 for k in LANE_ROW_KEYS}
+    ra, rb = rows(a, unit), rows(b, unit)
+    t = torch.cat([torch.full((a[k][0].numel(),), tol[k], device=ra.device) for k in LANE_ROW_KEYS])
+    dist = ((ra[:, None] - rb[None]).abs() / (t + t * rb[None].abs())).max(dim=-1).values
+    pair = dist.argmin(dim=1)
+    widths = [a[k][0].numel() for k in LANE_ROW_KEYS]
+    diff = (ra - rb[pair]).abs().split(widths, dim=1)
+    return dict(worst=max(float(dist.min(dim=1).values.max()), float(dist.min(dim=0).values.max())),
+                reordered_rows=int((pair != torch.arange(len(pair), device=pair.device)).sum()),
+                **{f"max_{k}_diff": float(d.max()) / unit[k] for k, d in zip(LANE_ROW_KEYS, diff)})
+
+
+def lanes_vs_single(model, lanes, device, labeler=None, cfg=None, hold=False) -> dict:
+    """CuTR on the lanes' first frames as one batch of N: each lane against
+    lane 0 of a batch of its frame repeated N times (``same_shapes``,
+    LANE_SAME_TOL), against a batch-1 run (``cutr``, LANE_F32_TOL) and a
+    batch-1 run against another (``batch_1_twice``: what the card's
+    products alone do between runs).  With a labeler, the label stage both
+    engines share (fused.label_boost_core) on the batch-N detections: all N
+    lanes in one tower call against one lane a call.  ``hold``: raise
+    unless every row is within its bound and the labels and overflow are
+    identical; else only ``same_shapes`` is held and the rest returned."""
+    import torch
+
+    from boxfusion_tpu_torch.runtime.fused import _detections, label_boost_core
+
+    frames = [lane[0] for lane in lanes]
+    n = len(frames)
+    sides = [float(max(f.image.shape[:2])) for f in frames]
+    stacked, together, alone = cutr_lanes(model, frames, device)
+    _, _, again = cutr_lanes(model, frames, device)
+    repeated = [cutr_lanes(model, [f] * n, device)[1] for f in frames]
+    out = dict(
+        same_shapes=[rows_apart(_detections(together, i), _detections(repeated[i], 0), LANE_SAME_TOL,
+                                sides[i]) for i in range(n)],
+        cutr=[rows_apart(_detections(together, i), _detections(alone[i], 0), LANE_F32_TOL, sides[i])
+              for i in range(n)],
+        batch_1_twice=[rows_apart(_detections(again[i], 0), _detections(alone[i], 0), LANE_SAME_TOL,
+                                  sides[i]) for i in range(n)],
+        live_rows_batch_n=[int(x) for x in (together["scores"] >= 0.3).sum(1)],
+        live_rows_batch_1=[int((o["scores"] >= 0.3).sum()) for o in alone])
+    if any(r["worst"] > 1.0 for r in out["same_shapes"]) or (
+            hold and any(r["worst"] > 1.0 for r in out["cutr"])):
+        raise RuntimeError(f"CuTR at batch {n}: a lane beyond its bound: {out}")
+    if labeler is None:
+        return out
+    det_cfg = cfg["detection"]
+    kw = dict(label_budget=int(det_cfg["max_label_boxes"]), scale_box=float(det_cfg["scale_box"]),
+              clip_coeff=float(cfg["box_fusion"]["clip_sim_coeff"]),
+              raw_score_thresh=float(det_cfg["score_thresh"]))
+    dets = [_detections(together, i) for i in range(n)]
+    hws = [tuple(float(x) for x in f.image.shape[:2]) for f in frames]
+    with torch.inference_mode(), AttentionBatches() as att:
+        got, got_ovf = label_boost_core(labeler, dets, stacked.image, hws, **kw)
+        single = [label_boost_core(labeler, [dets[i]], stacked.image[i:i + 1], [hws[i]], **kw)
+                  for i in range(n)]
+    labels = []
+    for i, ((want,), want_ovf) in enumerate(single):
+        kept = want["scores"] > -1e8
+        d = (got[i]["scores"] - want["scores"]).abs()[kept]
+        labels.append(dict(
+            kept_equal=bool(torch.equal(got[i]["scores"] > -1e8, kept)),
+            categories_equal=bool(torch.equal(got[i]["category"], want["category"])),
+            overflow=[int(got_ovf[i]), int(want_ovf[0])], kept=int(kept.sum()),
+            max_score_diff=float(d.max()) if len(d) else 0.0,
+            within=bool((d <= (1 + want["scores"][kept].abs()) * LANE_F32_TOL["scores"]).all())))
+    out.update(labels=labels, label_batches=sorted(set(att.batches)),
+               attention_shapes=sorted(att.shapes))
+    if hold and not all(x["kept_equal"] and x["categories_equal"] and x["within"]
+                        and x["overflow"][0] == x["overflow"][1] for x in labels):
+        raise RuntimeError(f"label stage, {n} lanes in one call against one a call: {labels}")
+    return out
+
+
+class ReplayDetector:
+    """Hands a DevicePipeline the detections one batched lane's step took,
+    keyframe by keyframe (tensors on the card: keyframe_step_devdet)."""
+
+    def __init__(self, dets):
+        self.dets = iter(dets)
+
+    def __call__(self, frame):
+        return dict(next(self.dets))
+
+
+def phase_batched(device, n_lanes=4, dimension=768, clip_cfg=None, n_frames=24,
+                  image_hw=(384, 512)) -> dict:
+    """BatchedPipeline, 4 lanes (sequences of seeds 0-3, phase 7's frames,
+    depth in whole millimetres), packed, unlabelled and labelled.
+
+    Each lane is held equal (integers exact, floats 1e-6) to a
+    single-sequence DevicePipeline run of its frames fed the detections that
+    lane's step took (the batched CuTR forward's, labelled by the batched
+    tower call): the lane bookkeeping at the same shapes.  What batching
+    changes is held before the search, at float32 (lanes_vs_single): no lane
+    leaks into another at the same shapes (LANE_SAME_TOL), CuTR at batch 4
+    against batch 1 and the label stage over 4 x 100 crops in one tower call
+    against 100 a call within LANE_F32_TOL, labels identical.
+    Each lane's world is also compared with a plain single-sequence
+    device-engine run in bf16; the search and near-tie decisions amplify the
+    rounding there, so that difference is printed, not held.
+    whole_seq_attention is held against its twin at every shape these runs
+    gave it.  Returns the launch counts per path."""
+    import dataclasses
+
+    import numpy as np
+
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.runtime import BatchedPipeline, CuTRDetector, DevicePipeline
+
+    t_phase = time.perf_counter()
+    kernels = (pst_search, fitness_cells, whole_seq_attention)
+    model = make_main_model(device, dimension=dimension)
+    labeler = make_labeler(device, clip_cfg)
+    lanes = [main_path_frames(seed=s, n_frames=n_frames, image_hw=image_hw) for s in range(n_lanes)]
+
+    def batched(label, lanes=lanes, name=None):
+        pipe = BatchedPipeline(engine_config(label), CuTRDetector(model, device=device), n_lanes,
+                               capacity=2048, transport="packed",
+                               labeler=labeler if label else None, device=device)
+        taken = [[] for _ in range(n_lanes)]
+        step_lanes = pipe._step_lanes
+
+        def recorded(dets, *args):
+            for i, det in enumerate(dets):
+                if det is not None:
+                    taken[i].append({k: v.clone() for k, v in det.items()})
+            return step_lanes(dets, *args)
+
+        sync(device)
+        for k in kernels:
+            k.launches = 0
+        with AttentionBatches() as att:
+            t0 = time.perf_counter()
+            pipe._step_lanes = recorded  # a copy per keyframe: in the timed run
+            worlds = pipe.run(lanes, gap=1)
+            seconds = time.perf_counter() - t0
+        rec = dict(phase="batched", run=name, engine="batched", transport="packed", lanes=n_lanes,
+                   labelled=label, rounds=pipe.rounds, keyframes=pipe.keyframes, seconds=seconds,
+                   keyframes_per_s=pipe.keyframes / seconds,
+                   lane_frames_per_s=[float(x) for x in pipe.lane_fps],
+                   host_reads_per_round=pipe.host_reads / pipe.rounds,
+                   host_reads_per_keyframe=pipe.host_reads / pipe.keyframes,
+                   world_boxes=[len(w["scores"]) for w in worlds],
+                   fused_boxes=[int(w["fusion_flag"].sum()) for w in worlds],
+                   launches={k.__name__: k.launches for k in kernels},
+                   clip_batches=sorted(set(att.batches)), attention_shapes=sorted(att.shapes))
+        check_path_launches(rec, f"batched phase, {name}")
+        for w in worlds:
+            if len(w["scores"]) == 0 or not np.isfinite(w["xyzlhw"]).all():
+                raise RuntimeError(f"batched {name}: an empty or non-finite lane world")
+        print(json.dumps(rec))
+        return rec, worlds, taken
+
+    batched(False, lanes=[f[:2] for f in lanes], name="warm-up")
+    recs, diffs = {}, {}
+    for label in (False, True):
+        name = "batched_labelled" if label else "batched"
+        recs[name], worlds, taken = batched(label, name=name)
+        diffs[name] = []
+        for i, (lane, w) in enumerate(zip(lanes, worlds)):
+            cfg = engine_config(label)
+            replay = DevicePipeline(cfg, ReplayDetector(taken[i]), capacity=2048, device=device)
+            if label:  # the raw filter ran before the tower (DevicePipeline.__init__)
+                replay.step_cfg = dataclasses.replace(replay.step_cfg, score_thresh=-1e8)
+            _worlds_equal(w, replay.run(lane, gap=1), f"{name} lane {i} vs its replay")
+            _, single = drive_engine("device", device, model, lane, cfg,
+                                     labeler=labeler if label else None)
+            diffs[name].append(world_diff(w, single))
+    bf16_rows = lanes_vs_single(model, lanes, device)
+    del model, labeler
+    # float32: the batched forward and the 4 x 100-crop tower call held to
+    # batch 1 before the search
+    f32_model = make_main_model(device, "float32", dimension)
+    f32_labeler = make_labeler(device, dataclasses.replace(clip_cfg or clip_l14_config(),
+                                                           dtype="float32"))
+    f32_rows = lanes_vs_single(f32_model, lanes, device, f32_labeler, engine_config(True), hold=True)
+    del f32_model, f32_labeler
+    attention = check_path_attention(
+        device, {tuple(x) for r in [*recs.values(), f32_rows] for x in r["attention_shapes"]},
+        "batched phase")
+    summary = dict(phase="batched", summary=True, seconds=time.perf_counter() - t_phase,
+                   lanes_equal_to_replay=True, bf16_lanes_vs_device_engine=diffs,
+                   bf16_batch_vs_single=bf16_rows, f32_batch_vs_single=f32_rows,
+                   attention_vs_twin=attention)
+    print(json.dumps(summary))
+    return {k: recs[k]["launches"] for k in recs}
+
+
+# -------------------------------------------------------------------- phase 10
+def phase_eval(device, dimension=768, n_frames=24, image_hw=(384, 512), cli_args=()) -> dict:
+    """The eval entry point: ``python -m boxfusion_tpu_torch.eval --synthetic
+    2`` as a subprocess must print AP@0.25 = AP@0.50 = 1.0000; then
+    evaluate_sequences_batched over 4 synthetic sequences with CuTR-768
+    (4 lanes, packed) must return and write one pickle per sequence."""
+    from boxfusion_tpu_torch.data.synthetic import SyntheticSequence
+    from boxfusion_tpu_torch.eval import evaluate_sequences_batched
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.runtime import CuTRDetector
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "boxfusion_tpu_torch.eval", "--config",
+         os.path.join(HERE, "config/ca1m.yaml"), "--synthetic", "2", *cli_args],
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+    )
+    lines = [ln for ln in proc.stdout.splitlines() if "AP@0.25" in ln]
+    rec = dict(phase="eval", cli_rc=proc.returncode, cli_printed=lines,
+               cli_seconds=time.perf_counter() - t0)
+    if proc.returncode != 0 or not lines or "AP@0.25 = 1.0000  AP@0.50 = 1.0000" not in lines[0]:
+        print(json.dumps(rec))
+        raise RuntimeError(f"eval --synthetic 2: rc {proc.returncode}, printed {lines}, "
+                           f"stderr {proc.stderr[-2000:]}")
+
+    t1 = time.perf_counter()
+    seqs = [SyntheticSequence(n_frames=n_frames, n_boxes=8, image_hw=image_hw, seed=s,
+                              video_id=f"synth{s}") for s in range(4)]
+    pst_search.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = evaluate_sequences_batched(
+            engine_config(), seqs, CuTRDetector(make_main_model(device, dimension=dimension),
+                                                device=device), lanes=4,
+            output_dir=tmp, capacity=2048, packed=True, device=device,
+        )
+        pickles = sorted(f for f in os.listdir(tmp) if f.endswith("_boxes.pkl"))
+    rec.update(batched_seconds=time.perf_counter() - t1, batched_sequences=len(out["sequences"]),
+               batched_boxes=[r["n_boxes"] for r in out["sequences"]],
+               batched_lane_fps=[r["fps"] for r in out["sequences"]], pickles=pickles,
+               pst_search_launches=pst_search.launches)
+    print(json.dumps(rec))
+    if pickles != [f"synth{s}_boxes.pkl" for s in range(4)] or len(out["sequences"]) != 4:
+        raise RuntimeError(f"evaluate_sequences_batched: {len(out['sequences'])} results, pickles {pickles}")
+    if pst_search.launches <= 0:
+        raise RuntimeError("evaluate_sequences_batched: pst_search was never launched")
+    return rec
+
+
 # ------------------------------------------------------------------------ main
 def card_line() -> str:
     out = subprocess.run(
@@ -1154,16 +1811,26 @@ def main() -> int:
     phase_device_oracle(device)
     log("phase 7: device engine, main path at full width, without and with labels")
     drec = phase_device_main(device)
+    log("phase 8: fused engine beside the device engine, chunk 1 and 8, label buckets")
+    by_path = {"host_labelled": mrec["launches"], "device_labelled": drec["launches"]}
+    by_path.update(phase_fused(device))
+    log("phase 9: batched engine, 4 lanes, packed, without and with labels")
+    by_path.update(phase_batched(device))
+    log("phase 10: the eval entry point (--synthetic 2) and evaluate_sequences_batched")
+    phase_eval(device)
 
-    # launches: each kernel's count over the path that runs it -- the
-    # labelled host-engine run plus the labelled device-engine run for
-    # pst_search and whole_seq_attention; phase 2's run of the eager loop
-    # (multiview_fitness's path, off the main path) for fitness_cells; the
-    # ablation for tiled_attention
+    # launches: each kernel's count over the path that runs it -- for
+    # pst_search and whole_seq_attention the sum over the paths of phases 3,
+    # 7, 8 and 9 (labelled host and device engines, every fused and batched
+    # run), each path's own count under "launches_by_path"; phase 2's run of
+    # the eager loop (multiview_fitness's path, off the main path) for
+    # fitness_cells; the ablation for tiled_attention
     launches["fitness_cells"] = next(r for r in krecs if r["name"] == "pst_search")[
         "eager_fitness_cells_launches"]
+    path_counts = {}
     for name in ("pst_search", "whole_seq_attention"):
-        launches[name] = mrec["launches"][name] + drec["launches"][name]
+        path_counts[name] = {path: counts[name] for path, counts in by_path.items()}
+        launches[name] = sum(path_counts[name].values())
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = {"fitness_cells": (),
@@ -1171,7 +1838,8 @@ def main() -> int:
                             "smem_bytes", "threads", "cluster", "max_active_clusters"),
              "whole_seq_attention": ATTENTION_RECORD_KEYS,
              "tiled_attention": KERNEL_INFO_KEYS + ("bf16",)}
-    kernels = [{**{k: rec[k] for k in keys + extra[rec["name"]]}, "launches": launches[rec["name"]]}
+    kernels = [{**{k: rec[k] for k in keys + extra[rec["name"]]}, "launches": launches[rec["name"]],
+                **({"launches_by_path": path_counts[rec["name"]]} if rec["name"] in path_counts else {})}
                for rec in krecs]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -118,19 +118,39 @@ def test_cli_skip_if_output_exists(tmp_path, capsys):
 
 @pytest.mark.parametrize("engine", ["device", "fused"])
 def test_cli_refuses_engines_that_are_not_ported(tmp_path, capsys, engine):
-    """``fused`` is refused with a message that names its roadmap item;
-    ``device`` is ported and parses with its flags; an engine that does not
-    exist is an argparse error."""
+    """Both device-resident engines parse with their flags; an engine that
+    does not exist is an argparse error.  ``fused`` also runs: on the
+    synthetic sequence (an oracle detector, no CuTR) it falls back to the
+    device engine with the JAX CLI's message; on an on-disk CA-1M sequence it
+    runs a random-init CuTR-192 in chunks of 2 and writes the eval pickle."""
     cfg = _small_cfg(tmp_path, "out")
     if engine == "fused":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*A\.5"):
-            cli.main(["synthetic", "--config", cfg, "--engine", "fused", "--device", "cpu"])
+        assert cli.main(["synthetic", "--config", cfg, "--engine", "fused", "--device", "cpu",
+                         "--capacity", "48"]) == 0
+        out = capsys.readouterr().out
+        assert ("[cli] fused engine needs a CuTR detector; synthetic uses the oracle -- "
+                "falling back to --engine device") in out
+        assert "[cli] device engine: " in out
+
+        from tests.test_dataprocess import _write_capture
+
+        from boxfusion_tpu.data_process import convert_capture_to_slam
+
+        slam = tmp_path / "slam" / "42898867"
+        convert_capture_to_slam(str(_write_capture(tmp_path, n_frames=6)), str(slam))
+        cfg = _small_cfg(tmp_path, "disk", eval=True, **{"data.datadir": str(slam), "cam.H": 64,
+                                                          "cam.W": 48, "detection.score_thresh": 0.0})
+        assert cli.main([str(slam), "--config", cfg, "--engine", "fused", "--chunk", "2",
+                         "--dimension", "192", "--device", "cpu", "--capacity", "48"]) == 0
+        out = capsys.readouterr().out
+        assert "random-initialized CuTR" in out and "[cli] fused engine: " in out
+        assert (tmp_path / "disk" / "42898867_boxes.pkl").exists()
     else:
         args = cli.build_argparser().parse_args(
             ["synthetic", "--config", cfg, "--engine", "device", "--capacity", "48",
              "--save-state", "s.pt", "--restore-state", "r.pt", "--restore-count", "30"])
         assert (args.engine, args.capacity, args.save_state, args.restore_state,
-                args.restore_count) == ("device", 48, "s.pt", "r.pt", 30)
+                args.restore_count, args.chunk) == ("device", 48, "s.pt", "r.pt", 30, 1)
     with pytest.raises(SystemExit) as e:
         cli.main(["synthetic", "--config", cfg, "--engine", engine + "x"])
     assert e.value.code == 2

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     for new in ("cli", "utils.io", "ops.attention_kernel", "models.clip.model",
                 "models.clip.head", "models.clip.convert", "models.clip.text",
                 "runtime.device_state", "runtime.device_step", "runtime.device_pipeline",
-                "utils.checkpoint", "tools.attention_ablation", "ops.pst_search"):
+                "utils.checkpoint", "tools.attention_ablation", "ops.pst_search",
+                "runtime.fused", "runtime.batched", "eval.ap3d", "eval.runner", "eval.__main__"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 
@@ -73,6 +74,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         make_cutr(192)
     with pytest.raises(RuntimeError, match="CUDA"):
         CuTRDetector(make_cutr(192, device="cpu"))
+    det = CuTRDetector(make_cutr(192, device="cpu"), device="cpu")
+    from boxfusion_tpu_torch.eval import evaluate_sequences
+    from boxfusion_tpu_torch.runtime import BatchedPipeline, FusedDevicePipeline
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedDevicePipeline(cfg, det)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedPipeline(cfg, det, n_lanes=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_sequences(cfg, [SyntheticSequence(n_frames=2)], lambda s: OracleDetector(s))
     with pytest.raises(RuntimeError, match="CUDA"):
         optimize_boxes(np.zeros((1, 6)), np.eye(3)[None], np.zeros((8, 6)), np.tile(np.eye(4), (1, 2, 1, 1)),
                        np.zeros((1, 2, 8, 2)), np.ones((1, 2)), np.ones(1, bool), np.eye(3), 10.0, 10.0)
