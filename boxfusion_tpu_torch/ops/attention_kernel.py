@@ -32,6 +32,7 @@ import dataclasses
 import torch
 
 from boxfusion_tpu_torch.ops import build
+from boxfusion_tpu_torch.utils.device import refuse_autograd
 
 HEAD_DIMS = (16, 32, 64, 80, 128)  # head widths the kernel is instantiated for
 # the C entry's type codes: float32 runs the FMA kernel (full float32, no
@@ -175,13 +176,16 @@ def whole_seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns:
       (B, T, D) in q's dtype, contiguous.  On a CUDA device the launch is
-      asynchronous on the current stream.
+      asynchronous on the current stream.  The kernel defines no gradient:
+      on a CUDA device, under grad mode with an input that requires grad, it
+      raises RuntimeError (``utils/device.py:refuse_autograd``).
     """
     hd = _check_args(q, k, v, heads)
     if q.device.type == "cpu":
         return whole_seq_attention_reference(q, k, v, heads, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"whole_seq_attention runs on cuda or cpu tensors, got {q.device}")
+    refuse_autograd("whole_seq_attention", q, k, v)
     B, T, D = q.shape
     if B > 65535:
         raise ValueError(f"at most 65535 sequences per launch, got {B}")

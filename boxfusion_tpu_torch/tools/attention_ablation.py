@@ -46,6 +46,7 @@ import functools
 import torch
 
 from boxfusion_tpu_torch.ops import build
+from boxfusion_tpu_torch.utils.device import refuse_autograd
 
 HEAD_DIMS = (16, 32, 64, 128)  # head widths the kernel is instantiated for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -190,13 +191,16 @@ def tiled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns:
       (BH, N, D) in q's dtype, contiguous.  On a CUDA device the launch is
-      asynchronous on the current stream.
+      asynchronous on the current stream.  The kernel defines no gradient:
+      on a CUDA device, under grad mode with an input that requires grad, it
+      raises RuntimeError (``utils/device.py:refuse_autograd``).
     """
     _check_args(q, k, v, block_q)
     if q.device.type == "cpu":
         return reference_attention(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"tiled_attention runs on cuda or cpu tensors, got {q.device}")
+    refuse_autograd("tiled_attention", q, k, v)
     BH, N, D = q.shape
     if BH > 65535:
         raise ValueError(f"at most 65535 slices per launch, got {BH}")

@@ -29,6 +29,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record ``what`` -- a hand-written kernel
+    that defines no gradient -- on ``tensors``.
+
+    The kernel writes its result into a fresh tensor outside autograd, so
+    under grad mode the result would carry no ``grad_fn`` and backward would
+    pass nothing through it, silently.  The JAX package defines no gradient
+    for its Pallas kernels either.  Inference (``torch.no_grad``,
+    ``torch.inference_mode``, or inputs that require no grad) passes.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel defines no gradient, and an input requires one; "
+            "run it under torch.no_grad() / torch.inference_mode(), or use the plain "
+            "PyTorch path (CuTR attn_impl='xla'; CPU tensors run the plain twin)"
+        )
+
+
 class HostReads:
     """Count of device-to-host reads that steer control flow.
 

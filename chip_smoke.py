@@ -96,13 +96,33 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 AP@0.25 = AP@0.50 = 1.0000; evaluate_sequences_batched over 4
                 synthetic sequences with CuTR-768 must return and write its
                 4 pickles.
+ 11. train   -- ``python -m boxfusion_tpu_torch.train`` as a subprocess at
+                full width (CuTR-768 RGB-D float32, 384x512 frames, depth at
+                1/4, batch 8, 20 steps): rc 0, every printed loss finite, the
+                step-20 checkpoint restored to equal parameters, steps/s over
+                steps 2-20.  In process, on one batch of 8: synced ms of
+                forward + loss, backward and AdamW over 5 steps at lr 1e-4
+                (the loss must fall), peak memory, the float32 bound (3 x the
+                forward's matmul FLOPs over 67 TFLOP/s), the trainer's sharded
+                step at world size 1, and every kernel's launches over those
+                steps (0: training runs plain attention).  CuTR-192 on the
+                card against the CPU path, one step from the same weights:
+                assignments and top-k equal, loss rtol 1e-4, gradients within
+                1e-3 relative L2 plus twice the CPU path's own spread.  A
+                fine-tune from tests/fixtures/cutr_trained_192_f16.pth, the
+                ``--data-root`` mode on a capture converted by the port's
+                ``data_process convert`` (prints "dataset: 4 frames"),
+                shard_inference of CuTR-768 on a one-rank mesh equal to the
+                plain forward (1e-6), and both attention wrappers refusing
+                inputs that require grad.
 
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
-(pst_search's and whole_seq_attention's also "launches_by_path", the count
-of each path of phases 3, 7, 8 and 9; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
+(every kernel's "launches_by_path": pst_search's and whole_seq_attention's
+the count of each path of phases 3, 7, 8, 9 and 11, the other two's phase
+11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
 "local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
 both attention entries also have "registers", "local_bytes",
 "smem_bytes" and "blocks_per_sm"; whole_seq_attention's "achieved_tb_s";
@@ -1777,6 +1797,450 @@ def phase_eval(device, dimension=768, n_frames=24, image_hw=(384, 512), cli_args
     return rec
 
 
+# -------------------------------------------------------------------- phase 11
+TRAIN_ARGS = ["--steps", "20", "--batch", "8", "--dim", "768", "--image-size", "512",
+              "--n-sequences", "2", "--frames-per-seq", "8", "--n-boxes", "8", "--log-every", "5",
+              "--warmup", "5", "--ckpt-every", "20"]
+FIXTURE = "tests/fixtures/cutr_trained_192_f16.pth"
+GRAD_TOL = 1e-3  # relative L2 per parameter, plus twice the plain path's own spread
+SPLIT_STEPS = 5  # JAX's criterion: 5 steps at lr 1e-4 end below the first loss
+
+
+def run_trainer(args, what: str, timeout: int = 600) -> dict:
+    """``python -m boxfusion_tpu_torch.train`` as a subprocess on the card:
+    its rc, printed losses and lines; fails unless rc 0 and every loss is
+    finite."""
+    import math
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "boxfusion_tpu_torch.train", *args],
+                          capture_output=True, text=True, timeout=timeout, cwd=HERE)
+    out = proc.stdout
+    losses = [float(ln.split("loss")[1].split("|")[0]) for ln in out.splitlines() if "| loss" in ln]
+    rec = dict(what=what, rc=proc.returncode, seconds=time.perf_counter() - t0, losses=losses,
+               lines=[ln for ln in out.splitlines() if ln.startswith(("mesh", "dataset", "resumed", "saved",
+                                                                      "steps 2-"))])
+    if proc.returncode != 0 or not losses or not all(math.isfinite(x) for x in losses):
+        print(json.dumps({"phase": "train", **rec}))
+        raise RuntimeError(f"train ({what}): rc {proc.returncode}, losses {losses}, "
+                           f"stderr {proc.stderr[-3000:]}")
+    return rec
+
+
+def write_capture(root, n_frames=4, hw=(48, 64)):
+    """A raw CA-1M capture directory (the layout ``data_process convert``
+    reads): per frame a .wide image + T_gravity and a .gt depth, pose and
+    intrinsics, from a seeded generator; one world GT instance."""
+    import numpy as np
+    from PIL import Image
+
+    cap = os.path.join(root, "42898867")
+    h, w = hw
+    rng = np.random.RandomState(0)
+    K = [[50.0, 0, w / 2], [0, 50.0, h / 2], [0, 0, 1]]
+    for i in range(n_frames):
+        wide, gt = os.path.join(cap, f"{i:06d}.wide"), os.path.join(cap, f"{i:06d}.gt")
+        for d in (wide, os.path.join(gt, "image"), os.path.join(gt, "depth")):
+            os.makedirs(d, exist_ok=True)
+        Image.fromarray(rng.randint(0, 255, (h, w, 3), np.uint8)).save(os.path.join(wide, "image.png"))
+        Image.fromarray((rng.rand(h, w) * 3000).astype(np.uint16)).save(os.path.join(gt, "depth.png"))
+        pose = np.eye(4)
+        pose[:3, 3] = [0.1 * i, 0, 0]
+        for path, value in ((os.path.join(gt, "RT.json"), pose.tolist()),
+                            (os.path.join(wide, "T_gravity.json"), np.eye(3).tolist()),
+                            (os.path.join(gt, "image", "K.json"), K),
+                            (os.path.join(gt, "depth", "K.json"), K)):
+            with open(path, "w") as f:
+                json.dump(value, f)
+    os.makedirs(os.path.join(cap, "world.gt"), exist_ok=True)
+    with open(os.path.join(cap, "world.gt", "instances.json"), "w") as f:
+        json.dump([{"corners": np.zeros((8, 3)).tolist()}], f)
+    return cap
+
+
+def train_batch(device, image_size, n_frames, batch, seed=0):
+    """The trainer's synthetic epoch (``_build_dataset``) on ``device`` and a
+    fixed batch of its first ``batch`` frames."""
+    import argparse
+
+    import numpy as np
+
+    from boxfusion_tpu_torch.train.__main__ import _build_dataset, stack_frames, stack_targets, take
+
+    args = argparse.Namespace(image_size=image_size, n_sequences=1, frames_per_seq=n_frames, n_boxes=8,
+                              seed=seed, depth_ratio=4)
+    frames, targets = _build_dataset(args)
+    idx = np.arange(batch) % len(frames)
+    return take(stack_frames(frames, device), idx), take(stack_targets(targets, device), idx)
+
+
+def step_split(device, dimension=768, image_size=512, batch=8) -> dict:
+    """SPLIT_STEPS train steps at a constant lr 1e-4 on one fixed batch, each
+    through the trainer's own pieces (``batch_loss``, then ``apply_update``
+    with a synchronise before the optimizer step): synced ms of forward +
+    loss, backward and optimizer over steps 2.., peak memory, and the loss
+    falling (JAX's criterion)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from boxfusion_tpu_torch.models.cutr import make_cutr
+    from boxfusion_tpu_torch.train.step import apply_update, batch_loss, init_train_state, make_train_step
+
+    fb, tg = train_batch(device, image_size, 16, batch)
+    model = make_cutr(dimension, depth_model=True, device=device, seed=0)
+    step, opt = make_train_step(model, learning_rate=1e-4)
+    state = init_train_state(model, opt)
+    marks = []
+    real_step = opt.step
+
+    def timed_step(*a, **kw):
+        sync(device)
+        marks.append(time.perf_counter())
+        return real_step(*a, **kw)
+
+    opt.step = timed_step
+    on_card = torch.device(device).type == "cuda"
+    sync(device)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, parts = [], []
+    for _ in range(SPLIT_STEPS):
+        marks.clear()
+        t0 = time.perf_counter()
+        loss = batch_loss(model, fb, tg)
+        sync(device)
+        t1 = time.perf_counter()
+        apply_update(state, step.schedule, loss)
+        sync(device)
+        t3 = time.perf_counter()
+        losses.append(float(loss.detach()))
+        parts.append(((t1 - t0) * 1e3, (marks[0] - t1) * 1e3, (t3 - marks[0]) * 1e3))
+    peak = torch.cuda.max_memory_allocated(device) if on_card else float("nan")
+    del opt.step
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        model(fb, train=True)
+    fwd_flops = fc.get_total_flops()
+    mean = [sum(p[i] for p in parts[1:]) / (len(parts) - 1) for i in range(3)]
+    rec = dict(forward_loss_ms=mean[0], backward_ms=mean[1], optimizer_ms=mean[2],
+               step_ms=sum(mean), steps=SPLIT_STEPS, batch=batch, dimension=dimension,
+               image_size=image_size, losses=losses, peak_memory_gib=peak / 2 ** 30,
+               forward_flops=fwd_flops, step_flops=3 * fwd_flops,
+               f32_bound_ms=3 * fwd_flops / PEAK_F32_FLOPS * 1e3)
+    rec["bound_share"] = rec["f32_bound_ms"] / rec["step_ms"]
+    if not losses[-1] < losses[0]:
+        print(json.dumps({"phase": "train", **rec}))
+        raise RuntimeError(f"train: {SPLIT_STEPS} steps at lr 1e-4 did not lower the loss: {losses}")
+    return rec
+
+
+def no_grad_params(names):
+    """The parameters the set loss does not reach: the encoder proposals'
+    class head and the decoder's metric-token scale heads (the RGB-D model
+    de-whitens with the GT depth parameters) -- 26 at CuTR's 6 layers."""
+    return [n for n in names if n.startswith("prompting.prompters.1.predictors.0.") or (
+        n.startswith("decoder.predictors.") and n.split(".")[3] == "0")]
+
+
+def sharded_step_ms(device, dimension=768, image_size=512, batch=8) -> dict:
+    """The trainer's step as it runs it -- ``shard_train_step`` on a one-rank
+    mesh, where every placement replicates, so no parameter is a DTensor and
+    nothing is gathered -- on step_split's batch:
+    synced ms a step over steps 2..SPLIT_STEPS, split at the optimizer step
+    (forward + loss + backward, then AdamW)."""
+    import torch
+    import torch.distributed as dist
+
+    from boxfusion_tpu_torch.models.cutr import make_cutr
+    from boxfusion_tpu_torch.parallel import make_mesh, shard_train_step
+    from boxfusion_tpu_torch.parallel.mesh import init_process_group
+    from boxfusion_tpu_torch.train.step import init_train_state, make_train_step
+
+    fb, tg = train_batch(device, image_size, 16, batch)
+    made = init_process_group(torch.device(device).type)
+    try:
+        model = make_cutr(dimension, depth_model=True, device=device, seed=0)
+        step, opt = make_train_step(model, learning_rate=1e-4)
+        sstep, state, _, _ = shard_train_step(step, make_mesh(), init_train_state(model, opt), fb, tg)
+        marks, real_step = [], state.optimizer.step
+
+        def timed_step(*a, **kw):
+            sync(device)
+            marks.append(time.perf_counter())
+            return real_step(*a, **kw)
+
+        state.optimizer.step = timed_step
+        parts = []
+        for _ in range(SPLIT_STEPS):
+            marks.clear()
+            sync(device)
+            t0 = time.perf_counter()
+            state, m = sstep(state, fb, tg)
+            sync(device)
+            parts.append(((marks[0] - t0) * 1e3, (time.perf_counter() - marks[0]) * 1e3))
+        del state.optimizer.step
+        loss = float(m["loss"])
+    finally:
+        if made:
+            dist.destroy_process_group()
+    mean = [sum(p[i] for p in parts[1:]) / (len(parts) - 1) for i in range(2)]
+    return dict(sharded_step_ms=sum(mean), sharded_forward_backward_ms=mean[0],
+                sharded_optimizer_ms=mean[1], sharded_last_loss=loss)
+
+
+def _grad_run(device, sd, inputs, targets, record):
+    """One port train step's loss and gradients on ``device`` from the
+    state dict ``sd``; ``record`` collects greedy_match's assignments."""
+    import torch
+
+    from boxfusion_tpu_torch.models.cutr import FrameBatch, make_cutr
+    from boxfusion_tpu_torch.train import loss as loss_mod
+    from boxfusion_tpu_torch.train.step import init_train_state, make_train_step
+
+    model = make_cutr(192, depth_model=True, device=device)
+    model.load_state_dict(sd)
+    step, opt = make_train_step(model, learning_rate=1e-4)
+    real = loss_mod.greedy_match
+
+    def recorded(cost, mask):
+        out = real(cost, mask)
+        record.append(out.cpu())
+        return out
+
+    loss_mod.greedy_match = recorded
+    try:
+        fb = FrameBatch(**{k: torch.from_numpy(v).to(device) for k, v in inputs.items()})
+        _, m = step(init_train_state(model, opt), fb,
+                    {k: torch.from_numpy(v).to(device) for k, v in targets.items()})
+    finally:
+        loss_mod.greedy_match = real
+    with torch.no_grad():
+        enc = model(fb)["enc_logits"][..., 0]
+    from boxfusion_tpu_torch.models.cutr.layers import topk_stable
+
+    topk = topk_stable(enc, model.cfg.num_queries)[1].cpu()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return float(m["loss"]), grads, topk
+
+
+def card_against_cpu(device, S=256, r=4, B=2, G=4) -> dict:
+    """CuTR-192 float32, the same weights and batch through one train step on
+    the card and on the port's CPU path: greedy assignments and top-k
+    proposal indices equal, loss rtol 1e-4, every gradient within GRAD_TOL
+    relative L2 plus twice the CPU path's own spread (its gradient's move
+    when the image is scaled by 1 + 1e-7: CuTR's gradient has ReLU kinks a
+    rounding-level change of the forward crosses), the parameters with no
+    gradient exactly zero on both."""
+    import numpy as np
+    import torch
+
+    from boxfusion_tpu_torch.models.cutr import make_cutr
+
+    rng = np.random.RandomState(0)
+    f = 0.6 * S
+    inputs = dict(
+        image=rng.randn(B, S, S, 3).astype(np.float32),
+        depth=rng.randn(B, S // r, S // r, 1).astype(np.float32),
+        K=np.tile(np.array([[f, 0, S / 2], [0, f, S / 2], [0, 0, 1]], np.float32)[None], (B, 1, 1)),
+        image_hw=np.tile(np.array([[0.75 * S, S]], np.float32), (B, 1)),
+        depth_params=np.tile(np.array([[2.0, 0.5]], np.float32), (B, 1)),
+        T_gravity=np.tile(np.eye(3, dtype=np.float32)[None], (B, 1, 1)),
+    )
+    rng = np.random.RandomState(1)
+    targets = dict(
+        boxes2d=rng.uniform(50, 200, (B, G, 4)).astype(np.float32),
+        proj_xy=rng.uniform(0, 256, (B, G, 2)).astype(np.float32),
+        z=rng.uniform(0.5, 4.0, (B, G, 1)).astype(np.float32),
+        dims=rng.uniform(0.1, 1.0, (B, G, 3)).astype(np.float32),
+        pose=np.tile(np.eye(3, dtype=np.float32)[None, None], (B, G, 1, 1)),
+        mask=np.ones((B, G), np.float32),
+    )
+    targets["mask"][1, G - 1] = 0.0
+    sd = make_cutr(192, depth_model=True, device="cpu", seed=0).state_dict()
+    a_gpu, a_cpu, a_nudged = [], [], []
+    loss_gpu, g_gpu, topk_gpu = _grad_run(device, sd, inputs, targets, a_gpu)
+    loss_cpu, g_cpu, topk_cpu = _grad_run("cpu", sd, inputs, targets, a_cpu)
+    nudged = {**inputs, "image": inputs["image"] * np.float32(1 + 1e-7)}
+    _, g_nudged, _ = _grad_run("cpu", sd, nudged, targets, a_nudged)
+
+    errs, heads, zero = {}, [], []
+    for name, want in g_cpu.items():
+        if float(want.abs().max()) == 0.0:
+            zero.append(name)
+            if float(g_gpu[name].abs().max()) != 0.0:
+                raise RuntimeError(f"train card vs cpu: {name} has no gradient on the CPU, one on the card")
+            continue
+        norm = max(float(want.norm()), 1e-4)
+        err = float((g_gpu[name] - want).norm()) / norm
+        spread = float((g_nudged[name] - want).norm()) / norm
+        errs[name] = (err, spread)
+        if name.startswith("decoder.predictors."):
+            heads.append(err)
+    rec = dict(loss_card=loss_gpu, loss_cpu=loss_cpu, assignments_equal=all(
+        torch.equal(a, b) for a, b in zip(a_gpu, a_cpu)) and len(a_gpu) == len(a_cpu) == 6,
+        topk_equal=bool(torch.equal(topk_gpu, topk_cpu)), n_params=len(g_cpu), n_zero_grad=len(zero),
+        max_grad_rel_l2=max(e for e, _ in errs.values()),
+        max_grad_rel_l2_heads=max(heads), max_cpu_spread=max(s for _, s in errs.values()),
+        over_tol_alone=sum(e > GRAD_TOL for e, _ in errs.values()),
+        failing=[n for n, (e, s) in errs.items() if e > GRAD_TOL + 2 * s])
+    if (not rec["assignments_equal"] or not rec["topk_equal"] or rec["failing"]
+            or abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu) or not set(no_grad_params(g_cpu)) <= set(zero)):
+        print(json.dumps({"phase": "train", "card_vs_cpu": rec}))
+        raise RuntimeError(f"train card vs cpu: {rec}")
+    return rec
+
+
+def mesh_one_rank(device, dimension=768, S=512) -> dict:
+    """shard_inference on a one-rank mesh (nccl) against the plain forward:
+    every output within 1e-6."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from boxfusion_tpu_torch.models.cutr import FrameBatch, make_cutr
+    from boxfusion_tpu_torch.parallel import make_mesh, shard_inference
+    from boxfusion_tpu_torch.parallel.mesh import init_process_group, mesh_shape
+
+    made = init_process_group(torch.device(device).type)
+    try:
+        mesh = make_mesh()
+        model = make_cutr(dimension, depth_model=True, device=device, seed=0)
+        rng = np.random.RandomState(0)
+        f = 0.6 * S
+        fb = FrameBatch(
+            image=torch.from_numpy(rng.randn(1, S, S, 3).astype(np.float32)).to(device),
+            depth=torch.from_numpy(rng.randn(1, S // 4, S // 4, 1).astype(np.float32)).to(device),
+            K=torch.tensor([[[f, 0, S / 2], [0, f, S / 2], [0, 0, 1]]], device=device),
+            image_hw=torch.tensor([[0.75 * S, S]], device=device),
+            depth_params=torch.tensor([[2.0, 0.5]], device=device),
+            T_gravity=torch.eye(3, device=device)[None],
+        )
+        with torch.no_grad():
+            want = model(fb)
+        apply, placed = shard_inference(model, mesh)
+        got = apply(placed, fb)
+        diff = {k: float((got[k].float() - want[k].float()).abs().max())
+                for k in ("enc_logits", "enc_boxes", "scores", "pred_boxes", "boxes3d")}
+        rec = dict(mesh=mesh_shape(mesh), backend=dist.get_backend(), max_abs_diff=diff)
+    finally:
+        if made:
+            dist.destroy_process_group()
+    if max(diff.values()) > 1e-6:
+        print(json.dumps({"phase": "train", "mesh": rec}))
+        raise RuntimeError(f"train: shard_inference at world size 1 differs from the plain forward: {diff}")
+    return rec
+
+
+def refusal_on_card(device) -> dict:
+    """Both attention wrappers raise on inputs that require grad under grad
+    mode (no launch counted) and launch under no_grad."""
+    import torch
+
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
+
+    q = torch.randn(2, 65, 128, device=device, requires_grad=True)
+    t = torch.randn(2, 65, 64, device=device, requires_grad=True)
+    before = (whole_seq_attention.launches, tiled_attention.launches)
+    refused = []
+    for name, call in (("whole_seq_attention", lambda: whole_seq_attention(q, q, q, 2, 64 ** -0.5)),
+                       ("tiled_attention", lambda: tiled_attention(t, t, t))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no gradient" in str(e):
+                refused.append(name)
+    counted = (whole_seq_attention.launches, tiled_attention.launches) != before
+    with torch.no_grad():
+        whole_seq_attention(q, q, q, 2, 64 ** -0.5)
+        tiled_attention(t, t, t)
+    torch.cuda.synchronize(device)
+    after = (whole_seq_attention.launches - before[0], tiled_attention.launches - before[1])
+    rec = dict(refused=refused, launches_under_no_grad=after)
+    if len(refused) != 2 or counted or after != (1, 1):
+        raise RuntimeError(f"train: the attention wrappers' autograd refusal on the card: {rec}")
+    return rec
+
+
+def phase_train(device) -> dict:
+    """Phase 11: the training path.  Returns each kernel's launch count over
+    the in-process train steps (all 0: training runs plain attention)."""
+    import numpy as np
+    import torch
+
+    from boxfusion_tpu_torch.data_process.__main__ import main as prep_main
+    from boxfusion_tpu_torch.geometry.boxes import box_corners
+    from boxfusion_tpu_torch.models.cutr import make_cutr
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
+    from boxfusion_tpu_torch.utils.checkpoint import restore_params
+
+    card = card_line()
+    kernels = (fitness_cells, pst_search, whole_seq_attention, tiled_attention)
+    names = ("fitness_cells", "pst_search", "whole_seq_attention", "tiled_attention")
+
+    # the trainer at full width, as a subprocess; its checkpoint restored
+    with tempfile.TemporaryDirectory() as tmp:
+        full = run_trainer([*TRAIN_ARGS, "--ckpt-dir", tmp], "full width")
+        saved = os.path.join(tmp, "step_0000020")
+        params = restore_params(saved)
+        model = restore_params(saved, template=make_cutr(768, depth_model=True, device=device))
+        restored = model.state_dict()
+        equal = sorted(params) == sorted(restored) and all(
+            torch.equal(params[k], restored[k].cpu()) for k in params)
+        del model, restored
+    rate = [ln for ln in full["lines"] if ln.startswith("steps 2-")]
+    full.update(checkpoint_restored_equal=equal,
+                steps_per_s_2_20=float(rate[0].split(":")[1].split()[0]) if rate else None)
+    print(json.dumps({"phase": "train", "card": card, **full}))
+    if not equal or not full["steps_per_s_2_20"]:
+        raise RuntimeError(f"train: checkpoint restored equal {equal}, rate line {rate}")
+
+    # the step split, in process; the kernels' counts over these steps
+    for k in kernels:
+        k.launches = 0
+    split = step_split(device)
+    split.update(sharded_step_ms(device))
+    launches = dict(zip(names, (k.launches for k in kernels)))
+    print(json.dumps({"phase": "train", "card": card, "step_split": split, "launches": launches}))
+    if any(launches.values()):
+        raise RuntimeError(f"train: the training path launched a kernel: {launches}")
+    torch.cuda.empty_cache()
+
+    rec = card_against_cpu(device)
+    print(json.dumps({"phase": "train", "card_vs_cpu": rec}))
+
+    tune = run_trainer(["--resume", FIXTURE, "--dim", "192", "--steps", "4", "--log-every", "1",
+                        "--warmup", "1"], "fine-tune")
+    print(json.dumps({"phase": "train", **tune}))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = write_capture(tmp)
+        out = os.path.join(tmp, "slam", "42898867")
+        if prep_main(["convert", cap, out]) != 0:
+            raise RuntimeError("train: data_process convert failed")
+        xyzlhw = torch.tensor([[0.0, 0.0, 1.2, 0.4, 0.3, 0.2], [0.3, -0.1, 1.5, 0.2, 0.2, 0.5]])
+        np.save(os.path.join(out, "after_filter_boxes.npy"),
+                box_corners(xyzlhw, torch.eye(3).repeat(2, 1, 1)).numpy())
+        with open(os.path.join(HERE, "config/ca1m.yaml")) as f:
+            base = f.read()
+        cfg_path = os.path.join(tmp, "cfg.yaml")
+        with open(cfg_path, "w") as f:  # landscape 48x64: CA-1M stores W=height, H=width
+            f.write(base.replace("H: 384", "H: 64").replace("W: 512", "W: 48"))
+        real = run_trainer(["--steps", "2", "--batch", "8", "--dim", "192", "--data-root", out,
+                            "--train-config", cfg_path, "--gap", "1", "--n-boxes", "4",
+                            "--depth-ratio", "4", "--log-every", "1", "--warmup", "1"], "data-root")
+    print(json.dumps({"phase": "train", **real}))
+    if not any(ln.startswith("dataset: 4 frames") for ln in real["lines"]):
+        raise RuntimeError(f"train --data-root: printed {real['lines']}")
+
+    print(json.dumps({"phase": "train", "mesh_one_rank": mesh_one_rank(device)}))
+    print(json.dumps({"phase": "train", "refusal": refusal_on_card(device)}))
+    return launches
+
+
 # ------------------------------------------------------------------------ main
 def card_line() -> str:
     out = subprocess.run(
@@ -1818,19 +2282,26 @@ def main() -> int:
     by_path.update(phase_batched(device))
     log("phase 10: the eval entry point (--synthetic 2) and evaluate_sequences_batched")
     phase_eval(device)
+    log("phase 11: the training path (trainer at full width, step split, card vs CPU, "
+        "fine-tune, --data-root, one-rank mesh, autograd refusal)")
+    by_path["train"] = phase_train(device)
 
     # launches: each kernel's count over the path that runs it -- for
     # pst_search and whole_seq_attention the sum over the paths of phases 3,
-    # 7, 8 and 9 (labelled host and device engines, every fused and batched
-    # run), each path's own count under "launches_by_path"; phase 2's run of
-    # the eager loop (multiview_fitness's path, off the main path) for
-    # fitness_cells; the ablation for tiled_attention
+    # 7, 8, 9 and 11 (labelled host and device engines, every fused and
+    # batched run, the train steps), each path's own count under
+    # "launches_by_path"; phase 2's run of the eager loop (multiview_fitness's
+    # path, off the main path) for fitness_cells; the ablation for
+    # tiled_attention; every kernel's count over phase 11's train steps (0:
+    # training runs plain attention) under "launches_by_path" "train"
     launches["fitness_cells"] = next(r for r in krecs if r["name"] == "pst_search")[
         "eager_fitness_cells_launches"]
     path_counts = {}
     for name in ("pst_search", "whole_seq_attention"):
         path_counts[name] = {path: counts[name] for path, counts in by_path.items()}
         launches[name] = sum(path_counts[name].values())
+    for name in ("fitness_cells", "tiled_attention"):  # their own paths' counts stay under "launches"
+        path_counts[name] = {"train": by_path["train"][name]}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = {"fitness_cells": (),
@@ -1839,7 +2310,7 @@ def main() -> int:
              "whole_seq_attention": ATTENTION_RECORD_KEYS,
              "tiled_attention": KERNEL_INFO_KEYS + ("bf16",)}
     kernels = [{**{k: rec[k] for k in keys + extra[rec["name"]]}, "launches": launches[rec["name"]],
-                **({"launches_by_path": path_counts[rec["name"]]} if rec["name"] in path_counts else {})}
+                "launches_by_path": path_counts[rec["name"]]}
                for rec in krecs]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

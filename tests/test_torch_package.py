@@ -39,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import importlib, json, sys\n"
         f"mods = {_all_modules()!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'boxfusion_tpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'boxfusion_tpu'))\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "models.clip.head", "models.clip.convert", "models.clip.text",
                 "runtime.device_state", "runtime.device_step", "runtime.device_pipeline",
                 "utils.checkpoint", "tools.attention_ablation", "ops.pst_search",
-                "runtime.fused", "runtime.batched", "eval.ap3d", "eval.runner", "eval.__main__"):
+                "runtime.fused", "runtime.batched", "eval.ap3d", "eval.runner", "eval.__main__",
+                "train", "train.loss", "train.step", "train.__main__", "parallel", "parallel.mesh",
+                "data_process", "data_process.prep", "data_process.gt_filter", "data_process.__main__",
+                "structures", "structures.instances", "structures.boxes3d", "structures.sensor"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 
@@ -84,6 +87,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         BatchedPipeline(cfg, det, n_lanes=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_sequences(cfg, [SyntheticSequence(n_frames=2)], lambda s: OracleDetector(s))
+    from boxfusion_tpu_torch.train.__main__ import main as train_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--steps", "1", "--batch", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         optimize_boxes(np.zeros((1, 6)), np.eye(3)[None], np.zeros((8, 6)), np.tile(np.eye(4), (1, 2, 1, 1)),
                        np.zeros((1, 2, 8, 2)), np.ones((1, 2)), np.ones(1, bool), np.eye(3), 10.0, 10.0)
@@ -123,6 +130,63 @@ def test_device_engine_entry_points_raise_without_a_card(tmp_path):
         tiled_attention(m, m, m)
     with pytest.raises(ValueError, match="head width"):
         tiled_attention(q[..., :24], k[..., :24], v[..., :24])
+
+
+def test_refuse_autograd_logic():
+    """The check the attention wrappers make on the card before a launch:
+    it raises under grad mode when an input requires grad (the kernel
+    defines no gradient, so backward would pass nothing through it), and
+    passes under no_grad, inference_mode and for inputs without grad.  On
+    CPU tensors the wrappers run their differentiable twins, unchanged."""
+    from boxfusion_tpu_torch.ops.attention_kernel import (
+        whole_seq_attention,
+        whole_seq_attention_reference,
+    )
+    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
+    from boxfusion_tpu_torch.utils.device import refuse_autograd
+
+    x = torch.randn(2, 3, requires_grad=True)
+    y = torch.randn(2, 3)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        refuse_autograd("kernel", y, x)
+    refuse_autograd("kernel", y, y)
+    with torch.no_grad():
+        refuse_autograd("kernel", x, y)
+    with torch.inference_mode():
+        refuse_autograd("kernel", torch.randn(2, 3), y)
+
+    q = torch.randn(2, 17, 128, requires_grad=True)
+    out = whole_seq_attention(q, q, q, 2, 64 ** -0.5)
+    torch.testing.assert_close(out, whole_seq_attention_reference(q, q, q, 2, 64 ** -0.5))
+    out.sum().backward()
+    assert q.grad is not None and float(q.grad.abs().sum()) > 0
+    t = torch.randn(2, 17, 64, requires_grad=True)
+    tiled_attention(t, t, t).sum().backward()
+    assert t.grad is not None
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_autograd_on_card():
+    """On the card both attention wrappers raise on inputs that require grad
+    under grad mode, and launch under no_grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
+
+    q = torch.randn(2, 65, 128, device="cuda", requires_grad=True)
+    t = torch.randn(2, 65, 64, device="cuda", requires_grad=True)
+    before = (whole_seq_attention.launches, tiled_attention.launches)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        whole_seq_attention(q, q, q, 2, 64 ** -0.5)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tiled_attention(t, t, t)
+    assert (whole_seq_attention.launches, tiled_attention.launches) == before
+    with torch.no_grad():
+        whole_seq_attention(q, q, q, 2, 64 ** -0.5)
+        tiled_attention(t, t, t)
+    torch.cuda.synchronize()
+    assert (whole_seq_attention.launches, tiled_attention.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_kernel_build_is_keyed_by_source_and_flags():
