@@ -106,12 +106,6 @@ def main(argv=None) -> int:
         raise ValueError("Missing config path")
     cfg = load_config(args.config)
 
-    if cfg["vis"]["rerun"]:
-        raise NotImplementedError(
-            "vis.rerun is set, but the rerun viewer (utils/viz.py) is not part of "
-            "boxfusion_tpu_torch yet (ROADMAP.md section A.11); set vis.rerun to False"
-        )
-
     if args.validate_checkpoint:
         return _validate_checkpoint(args, cfg)
 
@@ -209,8 +203,30 @@ def main(argv=None) -> int:
 
     from boxfusion_tpu_torch.runtime import OnlinePipeline
 
+    from boxfusion_tpu_torch.utils import viz
+
     pipe = OnlinePipeline(cfg, detector, labeler=labeler, device=args.device)
-    world = pipe.run(dataset, verbose=args.verbose)
+    on_frame = on_keyframe = None
+    if cfg["vis"]["rerun"]:
+        # 3-pane Blueprint layout like the reference viewer (demo.py:35-65)
+        viz.init_recording(getattr(dataset, "video_id", "boxfusion"))
+        # live logging like the reference: every frame's camera/image/depth
+        # (demo.py:174-197), optional GT point cloud (demo.py:121-127), and
+        # the fused world after each keyframe (demo.py:330)
+        gt_points = bool(cfg["vis"]["gt_points"])
+
+        def on_frame(frame):
+            viz.log_frame(frame, frame.gt_pose)
+            if gt_points:
+                viz.log_gt_point_cloud(frame)
+
+        def on_keyframe(world):
+            viz.visualize_online_boxes(world, show_class=bool(cfg["vis"]["show_class"]),
+                                       show_label=bool(cfg["vis"]["show_label"]))
+
+    world = pipe.run(dataset, verbose=args.verbose, on_frame=on_frame, on_keyframe=on_keyframe)
+    if cfg["vis"]["rerun"]:
+        on_keyframe(world)
 
     if out_dir:
         from boxfusion_tpu_torch.utils.io import save_framewise_boxes, save_world_boxes
@@ -257,6 +273,14 @@ def _run_device_engine(args, cfg, dataset, detector, labeler, out_dir) -> int:
         pipe.save_state(args.save_state)
         print(f"[cli] saved pipeline state to {args.save_state} (frame {pipe.count})")
     print(f"[cli] {engine_used} engine: {len(out['scores'])} world boxes")
+    if cfg["vis"]["rerun"]:
+        from boxfusion_tpu_torch.utils import viz
+
+        # the final world only: per-keyframe logging would read the device
+        # state back every keyframe
+        viz.init_recording(getattr(dataset, "video_id", "boxfusion"))
+        viz.visualize_online_boxes(out, show_class=bool(cfg["vis"]["show_class"]),
+                                   show_label=bool(cfg["vis"]["show_label"]))
     if out_dir and cfg["eval"]:
         import torch
 

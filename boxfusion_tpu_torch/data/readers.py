@@ -18,8 +18,9 @@ semantics:
     (capture_stream.py:494-522).
 
 I/O stays host-side (PIL + numpy; cv2 is not required); everything yielded
-is a plain numpy ``Frame``.  A copy of ``boxfusion_tpu/data/readers.py``
-that decodes with PIL only: the native decoder is not part of this package.
+is a plain numpy ``Frame``.  A copy of ``boxfusion_tpu/data/readers.py``:
+PNG / JPEG decode and resize take the port's native loader
+(``boxfusion_tpu_torch/native``) when it builds, PIL otherwise.
 """
 from __future__ import annotations
 
@@ -61,25 +62,57 @@ class Frame:
     timestamp: int
 
 
+def _native():
+    from boxfusion_tpu_torch.native import get_loader
+
+    return get_loader()
+
+
 def _resize_rgb(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     if (arr.shape[1], arr.shape[0]) == tuple(size_wh):
         return arr
+    nl = _native()
+    if nl is not None and arr.dtype == np.uint8 and arr.ndim == 3:
+        return nl.resize_rgb(arr, size_wh)
     return np.asarray(Image.fromarray(arr).resize(size_wh, Image.BILINEAR))
 
 
 def _resize_depth(arr: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     if (arr.shape[1], arr.shape[0]) == tuple(size_wh):
         return arr
+    nl = _native()
+    if nl is not None:
+        return nl.resize_f32(arr.astype(np.float32), size_wh)
     return np.asarray(
         Image.fromarray(arr.astype(np.float32), mode="F").resize(size_wh, Image.BILINEAR)
     )
 
 
 def _load_rgb(path: str) -> np.ndarray:
+    nl = _native()
+    if nl is not None:
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            if path.endswith((".jpg", ".jpeg")):
+                return nl.decode_jpeg(data)
+            arr = nl.decode_png(data)
+            if arr.ndim == 3 and arr.dtype == np.uint8:
+                return arr
+        except ValueError:
+            pass
     return np.asarray(Image.open(path).convert("RGB"))
 
 
 def _load_depth_png(path: str, scale: float) -> np.ndarray:
+    nl = _native()
+    if nl is not None:
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            return nl.decode_png(data).astype(np.float32) / scale
+        except ValueError:
+            pass
     return np.asarray(Image.open(path)).astype(np.float32) / scale
 
 

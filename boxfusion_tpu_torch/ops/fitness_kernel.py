@@ -294,7 +294,7 @@ def fitness_cells(u, v, hull, planes, pvalid, area, wmask) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"fitness_cells kernel launch failed: cudaError_t {rc}")
-    fitness_cells.launches += 1
+    fitness_cells.launches += int(C > 0 and P > 0)  # the C entry launches nothing for no work
     return out
 
 

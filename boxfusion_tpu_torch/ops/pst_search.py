@@ -201,7 +201,7 @@ def pst_search(init_xyzlhw, R, pst, cam_poses, K, view_mask, obj_mask, prep, H, 
         )
     if rc != 0:
         raise RuntimeError(f"pst_search kernel launch failed: cudaError_t {rc}")
-    pst_search.launches += 1
+    pst_search.launches += int(N > 0)  # the C entry launches nothing for no object
     return fused, need_update, iterations
 
 

@@ -115,14 +115,30 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 shard_inference of CuTR-768 on a one-rank mesh equal to the
                 plain forward (1e-6), and both attention wrappers refusing
                 inputs that require grad.
+ 12. native  -- the port's native loader (g++, into _build/): built and
+                held against PIL and a bilinear model on tests/test_native.py's
+                cases, or, when it does not build, its compiler's reason
+                printed.  The main path's frames (24, 384x512) written in the
+                CA-1M layout and streamed back through CA1MDataset and
+                Prefetcher(depth=3) into the fused engine with CuTR-768 bf16:
+                the world equals the list-fed one (decisions equal, floats
+                within 1e-6).  Read ms per frame, native and PIL.
+ 13. trace   -- boxfusion_tpu_torch.tools.trace_keyframe (oracle, 200
+                frames at 512 px, gap 20) and trace_stress (CuTR-768 bf16
+                detections, 100 a keyframe, replayed) under torch.profiler:
+                top device rows, the device's busy share of the traced loop
+                (the union of kernel, memcpy and memset intervals over its
+                record_function span) and its five longest idle gaps with
+                the host op through each; the trace's pst_search kernel
+                events must equal the wrapper's launch count over the run.
 
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
 (every kernel's "launches_by_path": pst_search's and whole_seq_attention's
-the count of each path of phases 3, 7, 8, 9 and 11, the other two's phase
-11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
+the count of each path of phases 3, 7, 8, 9, 11, 12 and 13, the other two's
+phase 11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
 "local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
 both attention entries also have "registers", "local_bytes",
 "smem_bytes" and "blocks_per_sm"; whole_seq_attention's "achieved_tb_s";
@@ -2242,6 +2258,198 @@ def phase_train(device) -> dict:
 
 
 # ------------------------------------------------------------------------ main
+def native_checks(loader) -> dict:
+    """tests/test_native.py's cases on the port's native loader, against PIL
+    (PNG rgb8 and uint16 equal; JPEG within a mean of 2 levels) and a numpy
+    model of cv2-convention bilinear resize (1 level / 1e-5); a corrupt JPEG
+    must raise ValueError."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    def encode(img, fmt, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format=fmt, **kw)
+        return buf.getvalue()
+
+    def bilinear(img, dh, dw):
+        sh, sw = img.shape[:2]
+        fy = (np.arange(dh) + 0.5) * sh / dh - 0.5
+        fx = (np.arange(dw) + 0.5) * sw / dw - 0.5
+        y0, x0 = np.clip(np.floor(fy), 0, sh - 1).astype(int), np.clip(np.floor(fx), 0, sw - 1).astype(int)
+        y1, x1 = np.minimum(y0 + 1, sh - 1), np.minimum(x0 + 1, sw - 1)
+        wy, wx = np.clip(fy - y0, 0, 1)[:, None], np.clip(fx - x0, 0, 1)[None, :]
+        if img.ndim == 3:
+            wy, wx = wy[..., None], wx[..., None]
+        g = lambda ys, xs: img[np.ix_(ys, xs)].astype(np.float64)
+        return (g(y0, x0) * (1 - wx) + g(y0, x1) * wx) * (1 - wy) + (g(y1, x0) * (1 - wx) + g(y1, x1) * wx) * wy
+
+    rng = np.random.RandomState(0)
+    rgb = rng.randint(0, 255, (37, 53, 3), np.uint8)
+    u16 = (rng.rand(24, 31) * 60000).astype(np.uint16)
+    jpg = rng.randint(0, 255, (40, 60, 3), np.uint8)
+    jdata = encode(jpg, "JPEG", quality=95)
+    img, dep = rng.randint(0, 255, (48, 64, 3), np.uint8), rng.rand(48, 64).astype(np.float32)
+    rec = dict(
+        png_rgb8_equal=bool(np.array_equal(loader.decode_png(encode(rgb, "PNG")), rgb)),
+        png_u16_equal=bool(np.array_equal(loader.decode_png(encode(u16, "PNG")), u16)),
+        jpeg_mean_abs_diff=float(np.mean(np.abs(loader.decode_jpeg(jdata).astype(int)
+                                                - np.asarray(Image.open(io.BytesIO(jdata))).astype(int)))),
+        resize_rgb_max_diff=max(float(np.abs(loader.resize_rgb(img, wh).astype(float) - bilinear(img, wh[1], wh[0])).max())
+                                for wh in ((32, 24), (128, 96))),
+        resize_f32_max_diff=max(float(np.abs(loader.resize_f32(dep, wh) - bilinear(dep, wh[1], wh[0])).max())
+                                for wh in ((32, 24), (128, 96))),
+    )
+    try:
+        loader.decode_jpeg(b"\xff\xd8\xff\xe0garbage-not-a-jpeg")
+        rec["corrupt_jpeg_raises"] = False
+    except ValueError:
+        rec["corrupt_jpeg_raises"] = True
+    ok = (rec["png_rgb8_equal"] and rec["png_u16_equal"] and rec["jpeg_mean_abs_diff"] < 2.0
+          and rec["resize_rgb_max_diff"] <= 1.0 and rec["resize_f32_max_diff"] <= 1e-5
+          and rec["corrupt_jpeg_raises"])
+    if not ok:
+        print(json.dumps(dict(phase="native", checks=rec)))
+        raise RuntimeError(f"native loader against PIL / bilinear: {rec}")
+    return rec
+
+
+def phase_native(device, dimension=768, n_frames=24, image_hw=(384, 512)) -> dict:
+    """The port's native loader (g++, boxfusion_tpu_torch/_build/): built and
+    held against PIL, or, when it does not build, the compiler's reason
+    printed and the readers on PIL.  Either way: the main path's frames
+    written in the CA-1M layout, streamed back through CA1MDataset and
+    Prefetcher(depth=3) into the fused engine with CuTR-768 (bfloat16) on the
+    card, must give the world of the read-back frames fed as a list (integers
+    equal, floats within 1e-6).  Prints the read ms per frame (decode and
+    resize) with the native loader and with PIL.  Returns the kernels' launch
+    counts over the streamed run."""
+    import numpy as np
+
+    import boxfusion_tpu_torch.data.readers as readers
+    from boxfusion_tpu_torch.data.readers import CA1MDataset, write_ca1m_sequence
+    from boxfusion_tpu_torch.native import Prefetcher, build_error, get_loader
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.runtime import CuTRDetector, FusedDevicePipeline
+
+    t0 = time.perf_counter()
+    loader = get_loader()
+    rec = dict(phase="native", built=loader is not None, build_seconds=time.perf_counter() - t0)
+    if loader is None:
+        print(f"native loader did not build; the readers decode with PIL. Reason: {build_error()}")
+        rec["build_error"] = build_error()
+    else:
+        rec["checks"] = native_checks(loader)
+    kernels = (fitness_cells, pst_search, whole_seq_attention)
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = main_path_frames(seed=3, n_frames=n_frames, image_hw=image_hw)
+        write_ca1m_sequence(frames, tmp)
+        cfg = engine_config()
+        for sec, key, val in (("data", "datadir", tmp), ("data", "start", 0), ("cam", "png_depth_scale", 1000.0),
+                              ("cam", "H", image_hw[1]), ("cam", "W", image_hw[0])):
+            cfg[sec]._data[key] = val
+
+        def read_ms(native: bool) -> float:
+            saved = readers._native
+            if not native:
+                readers._native = lambda: None
+            try:
+                t = time.perf_counter()
+                got = list(CA1MDataset(cfg))
+                return 1e3 * (time.perf_counter() - t) / len(got)
+            finally:
+                readers._native = saved
+
+        read_ms(loader is not None)  # page cache warm
+        rec["read_ms_per_frame_pil"] = read_ms(False)
+        if loader is not None:
+            rec["read_ms_per_frame_native"] = read_ms(True)
+        read_back = list(CA1MDataset(cfg))
+        model = make_main_model(device, dimension=dimension)
+
+        def engine():
+            return FusedDevicePipeline(cfg, CuTRDetector(model, device=device), capacity=2048, device=device)
+
+        base = engine().run(read_back, gap=1)
+        streamed_pipe = engine()
+        sync(device)
+        for k in kernels:
+            k.launches = 0
+        t1 = time.perf_counter()
+        streamed = streamed_pipe.run(Prefetcher(CA1MDataset(cfg), depth=3), gap=1)
+        rec["stream_seconds"] = time.perf_counter() - t1
+        launches = {k.__name__: k.launches for k in kernels}
+    diff = world_diff(streamed, base)
+    if diff["decisions_equal"]:
+        diff["max_R_diff"] = float(np.abs(streamed["R"] - base["R"]).max(initial=0.0))
+    rec.update(frames=streamed_pipe.count, world_boxes=len(streamed["scores"]),
+               fused_boxes=int(np.sum(streamed["fusion_flag"])), launches=launches, world_diff=diff)
+    print(json.dumps(rec))
+    floats = max((diff.get(k, 0.0) for k in ("max_score_diff", "max_box_diff_unfused", "max_box_diff_fused",
+                                             "max_R_diff")), default=0.0)
+    if streamed_pipe.count != n_frames or not diff["decisions_equal"] or floats > 1e-6:
+        raise RuntimeError(f"native: streamed world differs from the list-fed one ({diff})")
+    check_search_launches(launches, "native stream")
+    return launches
+
+
+def phase_trace(device) -> dict:
+    """trace_keyframe (the oracle load) and trace_stress (CuTR-768 bfloat16,
+    100 detections a keyframe) at full size under torch.profiler.  For each:
+    the top device rows, the device's busy share of the traced loop (the
+    union of kernel, memcpy and memset intervals over the loop's
+    record_function span) and its five longest idle gaps with the host op
+    running through each.  The pst_search kernel events of the whole trace
+    must equal the wrapper's launch count: the counts are zeroed just before
+    the profiler starts and read after it stops, so the trace and the count
+    cover the same run.  The span is on the host's clock and the kernels on
+    the card's, so those inside the span are printed, not held: the last
+    keyframe's search ends a millisecond or two before the span does, and a
+    run whose clocks disagree by more moves it past the span's end.
+    Returns each tool's launch counts."""
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.tools import trace_keyframe, trace_stress
+    from boxfusion_tpu_torch.utils.profiling import count_events, device_activity
+
+    import torch
+
+    kernels = (fitness_cells, pst_search, whole_seq_attention)
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    by_tool = {}
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        for tool in (trace_keyframe, trace_stress):
+            name = tool.__name__.rsplit(".", 1)[-1]
+            t0 = time.perf_counter()
+            res = tool.run(device, out=os.path.join(tmp, name), verbose=False, before_trace=zero)
+            launches = {k.__name__: k.launches for k in kernels}
+            events = res["events"]
+            act = device_activity(events, tool.SPAN, n_gaps=5)
+            in_trace = count_events(events, "pst_search_kernel")
+            rec = dict(phase="trace", tool=name, keyframes=res["keyframes"], seconds=time.perf_counter() - t0,
+                       trace_mb=os.path.getsize(res["path"]) / 1e6, launches=launches,
+                       pst_search_events=in_trace,
+                       pst_search_events_in_span=count_events(events, "pst_search_kernel", span=tool.SPAN), **act,
+                       top=[dict(name=n[:100], ms=ms, count=c) for n, ms, c in res["rows"][:10]])
+            print(json.dumps(rec))
+            if act["n_device_events"] == 0:
+                raise RuntimeError(f"{name}: the trace holds no device event")
+            if in_trace != launches["pst_search"]:
+                raise RuntimeError(f"{name}: {in_trace} pst_search kernel events in the trace, "
+                                   f"{launches['pst_search']} launches counted")
+            check_search_launches(launches, name)
+            by_tool[name] = launches
+    return by_tool
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2285,11 +2493,19 @@ def main() -> int:
     log("phase 11: the training path (trainer at full width, step split, card vs CPU, "
         "fine-tune, --data-root, one-rank mesh, autograd refusal)")
     by_path["train"] = phase_train(device)
+    log("phase 12: the native loader: built and held against PIL (or its reason printed); "
+        "CA-1M on disk -> Prefetcher -> fused engine equals the list-fed world")
+    native_launches = phase_native(device)
+    by_path["native_stream"] = {**native_launches, "tiled_attention": 0}
+    log("phase 13: torch.profiler traces of trace_keyframe and trace_stress: busy share, idle gaps, "
+        "pst_search events against its launch count")
+    for tool, counts in phase_trace(device).items():
+        by_path[tool] = {**counts, "tiled_attention": 0}
 
     # launches: each kernel's count over the path that runs it -- for
     # pst_search and whole_seq_attention the sum over the paths of phases 3,
-    # 7, 8, 9 and 11 (labelled host and device engines, every fused and
-    # batched run, the train steps), each path's own count under
+    # 7, 8, 9, 11, 12 and 13 (labelled host and device engines, every fused
+    # and batched run, the train steps, the native stream, the traced runs), each path's own count under
     # "launches_by_path"; phase 2's run of the eager loop (multiview_fitness's
     # path, off the main path) for fitness_cells; the ablation for
     # tiled_attention; every kernel's count over phase 11's train steps (0:

@@ -31,11 +31,14 @@ torch.set_num_threads(2)
 
 
 def test_ca1m_reader_roundtrip_matches_jax(tmp_path, monkeypatch):
-    """The port decodes and resizes with PIL only; the JAX reader prefers
-    its native C++ decoder when that is built, so it is held to PIL here."""
+    """Both readers on their PIL branch (each prefers its native C++
+    decoder when that is built); tests/test_torch_native.py holds the two
+    native branches to each other."""
     import boxfusion_tpu.data.readers as jax_readers
+    import boxfusion_tpu_torch.data.readers as port_readers
 
     monkeypatch.setattr(jax_readers, "_native", lambda: None)
+    monkeypatch.setattr(port_readers, "_native", lambda: None)
     frames = list(SyntheticSequence(n_frames=3, n_boxes=2, seed=0))
     assert write_ca1m_sequence(frames, str(tmp_path)) == 3
     overrides = {"data": {"datadir": str(tmp_path)}}

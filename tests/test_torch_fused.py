@@ -216,6 +216,33 @@ def test_label_boost_core_bucket_equals_full_budget(monkeypatch, live, bucket):
     assert torch.equal(got["category"][keep], want["category"][keep])
 
 
+def test_fused_from_disk_via_prefetcher(model, frames, tmp_path):
+    """tests/test_fused_pipeline.py's I/O-inclusive case: the sequence
+    written in the CA-1M layout, streamed back by CA1MDataset (its native
+    decoder when that builds) through the threaded Prefetcher into the
+    fused engine, gives the world of the read-back frames fed as a list:
+    the prefetch thread and the disk decode change no decision."""
+    from boxfusion_tpu_torch.data.readers import CA1MDataset, write_ca1m_sequence
+    from boxfusion_tpu_torch.native import Prefetcher
+
+    out = tmp_path / "42898867"
+    write_ca1m_sequence(frames, str(out))
+    cfg = cfg_for(**{"data.datadir": str(out), "data.start": 0, "cam.png_depth_scale": 1000.0})
+    h, w = frames[0].image.shape[:2]
+    cfg["cam"]._data["H"], cfg["cam"]._data["W"] = w, h
+    read_back = list(CA1MDataset(cfg))
+    assert len(read_back) == 11
+
+    def engine():
+        return FusedDevicePipeline(cfg, CuTRDetector(model, device="cpu"), capacity=64, device="cpu")
+
+    base = engine().run(read_back, gap=2)
+    streamed_pipe = engine()
+    streamed = streamed_pipe.run(Prefetcher(CA1MDataset(cfg), depth=3), gap=2)
+    assert streamed_pipe.count == 11 and base["stats"]["keyframes"] == 6
+    assert_same_world(streamed, base)
+
+
 def test_chunked_matches_per_frame(model, monkeypatch):
     """chunk 3 at gap 1 over 8 frames: two uploads of 3 stacked buffers, then
     the partial tail of 2 through the per-frame path; the world is the

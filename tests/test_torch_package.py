@@ -14,6 +14,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -55,7 +56,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "runtime.fused", "runtime.batched", "eval.ap3d", "eval.runner", "eval.__main__",
                 "train", "train.loss", "train.step", "train.__main__", "parallel", "parallel.mesh",
                 "data_process", "data_process.prep", "data_process.gt_filter", "data_process.__main__",
-                "structures", "structures.instances", "structures.boxes3d", "structures.sensor"):
+                "structures", "structures.instances", "structures.boxes3d", "structures.sensor",
+                "native", "native.loader", "utils.profiling", "utils.viz", "tools.common",
+                "tools.trace_keyframe", "tools.trace_stress", "tools.profile_keyframe",
+                "tools.profile_stress", "tools.profile_detector", "tools.profile_fused"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 
@@ -94,6 +98,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         optimize_boxes(np.zeros((1, 6)), np.eye(3)[None], np.zeros((8, 6)), np.tile(np.eye(4), (1, 2, 1, 1)),
                        np.zeros((1, 2, 8, 2)), np.ones((1, 2)), np.ones(1, bool), np.eye(3), 10.0, 10.0)
+    # the ported tracers and profilers (each also takes --device cpu)
+    import importlib
+
+    from boxfusion_tpu_torch.utils import profiling
+
+    for tool in ("trace_keyframe", "trace_stress", "profile_keyframe", "profile_stress",
+                 "profile_detector", "profile_fused"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            importlib.import_module(f"boxfusion_tpu_torch.tools.{tool}").main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with profiling.trace():
+            pass
 
 
 def test_device_engine_entry_points_raise_without_a_card(tmp_path):
@@ -216,6 +232,35 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert "arch=compute_90a,code=sm_90a" in tiled and "fmad" not in tiled
     assert "use_fast_math" not in tiled
     assert (build.CSRC_DIR / build.SOURCES["tiled_attention_kernel"]).exists()
+
+
+def test_native_build_is_keyed_by_source_flags_and_toolchain(tmp_path, monkeypatch):
+    """The native loader's library lives in _build/, named by a hash of
+    loader.cc, the g++ flags and the compiler's version and target: any of
+    them changed names another library, so a stale or foreign one is never
+    loaded."""
+    from boxfusion_tpu_torch.native import loader
+
+    path = loader.library_path("g++ 13.2.0 x86_64-linux-gnu")
+    assert path.parent == loader.BUILD_DIR and path.name.startswith("libbfloader-") and path.suffix == ".so"
+    assert loader.BUILD_DIR == Path(boxfusion_tpu_torch.__file__).parent / "_build"
+    assert loader.library_path("g++ 13.2.0 x86_64-linux-gnu") == path
+    assert loader.library_path("g++ 14.1.0 x86_64-linux-gnu") != path
+    assert loader.library_path("g++ 13.2.0 aarch64-linux-gnu") != path
+    monkeypatch.setattr(loader, "GXX_FLAGS", loader.GXX_FLAGS + ("-g",))
+    assert loader.library_path("g++ 13.2.0 x86_64-linux-gnu") != path
+    monkeypatch.undo()
+    src = tmp_path / "loader.cc"
+    src.write_bytes(loader.SOURCE.read_bytes() + b"\n")
+    monkeypatch.setattr(loader, "SOURCE", src)
+    assert loader.library_path("g++ 13.2.0 x86_64-linux-gnu") != path
+    assert " ".join(loader.GXX_FLAGS + loader.LINK_FLAGS) == "-O3 -shared -fPIC -lpng -ljpeg -lz"
+
+
+def test_native_loader_source_is_the_jax_packages():
+    """boxfusion_tpu_torch/native/loader.cc is a byte-for-byte copy."""
+    ours = Path(REPO, "boxfusion_tpu_torch", "native", "loader.cc").read_bytes()
+    assert ours == Path(REPO, "boxfusion_tpu", "native", "loader.cc").read_bytes()
 
 
 def test_kernel_build_hash_sees_the_headers(tmp_path, monkeypatch):

@@ -282,3 +282,29 @@ def test_optimize_boxes_on_card_is_one_launch_and_no_host_read():
         before[0] + 1, before[1], before[2])
     torch.cuda.synchronize()
     assert fused.shape == (16, 6) and upd.dtype == torch.bool and torch.isfinite(fused).all()
+
+
+@pytest.mark.cuda
+def test_no_object_launches_nothing_and_counts_nothing():
+    """pst_search and fitness_cells count a launch only where the C entry
+    makes one: with no object (no cell) it returns at once, so the count
+    (which chip_smoke holds against the kernel events of a torch.profiler
+    trace) stays where it was."""
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+
+    dev = _card()
+    args = list(search_args(pst_scene(dev, n_obj=2, n_views=4, n_particles=128)))
+    for i in (0, 1, 3, 5, 6):
+        args[i] = args[i][:0].contiguous()
+    args[7] = {k: v[:0].contiguous() for k, v in args[7].items()}
+    before = pst_search.launches
+    fused, need_update, iters = pst_search(*args, PSTOptConfig(iters=4))
+    assert fused.shape == (0, 6) and need_update.shape == (0,) and iters.shape == (0,)
+    assert pst_search.launches == before
+    u = torch.zeros(0, 8, 128, device=dev)
+    hull, planes = torch.zeros(0, 8, 2, device=dev), torch.zeros(0, 12, 3, device=dev)
+    pvalid, col = torch.zeros(0, 12, device=dev), torch.zeros(0, 1, device=dev)
+    before = fitness_cells.launches
+    assert fitness_cells(u, u, hull, planes, pvalid, col, col).shape == (0, 128)
+    assert fitness_cells.launches == before
+    torch.cuda.synchronize()

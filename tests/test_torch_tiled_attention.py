@@ -174,3 +174,35 @@ def test_tiled_attention_kernel_on_card_matches_twin():
         out = torch.empty_like(x)
         assert lib.tiled_attention_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 3, 64, hd,
                                           scale, 1, consumers, stages, stream) != 0, (hd, scale, consumers, stages)
+
+
+@pytest.mark.cuda
+def test_empty_work_launches_nothing_and_counts_nothing():
+    """Both attention wrappers count a launch only where the C entry makes
+    one: with no slice (or no sequence) it returns at once, so the count
+    (which chip_smoke holds against the kernel events of a torch.profiler
+    trace) stays where it was.  tiled_attention's bfloat16 plan refuses an
+    empty batch outright (ValueError), which launches nothing either."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(0, 64, 64, dtype=dtype, device=dev)
+        before = tiled_attention.launches
+        if dtype == torch.float32:
+            assert tiled_attention(q, q, q).shape == (0, 64, 64)
+        else:
+            with pytest.raises(ValueError, match="no plan"):
+                tiled_attention(q, q, q)
+        assert tiled_attention.launches == before
+        x = torch.zeros(0, 17, 4 * 64, dtype=dtype, device=dev)
+        before = whole_seq_attention.launches
+        assert whole_seq_attention(x, x, x, heads=4, sm_scale=0.125).shape == (0, 17, 256)
+        assert whole_seq_attention.launches == before
+        one = torch.randn(1, 64, 64, device=dev).to(dtype)
+        before = tiled_attention.launches
+        tiled_attention(one, one, one)
+        assert tiled_attention.launches == before + 1
+    torch.cuda.synchronize()

@@ -11,19 +11,25 @@ Held here, each with its bound:
     same flax parameters (``from_flax_params``): loss rtol 1e-4; every
     parameter's gradient (the JAX tree through the same, linear, converter)
     within a relative L2 error of 1e-3 plus twice the JAX package's own
-    spread (see ``test_train_step_matches_jax``); after one AdamW step at a
+    spread over four rounding-level nudges of the image (see
+    ``test_train_step_matches_jax``); after one AdamW step at a
     constant learning rate, every parameter within 2 x lr of optax's, and
     the update itself optax's (same sign and within 1e-2 lr wherever the
     gradients agree, 0.1 relative L2 over the model); the parameters that
     get no gradient exactly zero on both sides and decayed as optax decays
     them (also at a rate that shows, through the trainer's optimizer
     factory);
+  * the same step with both stacks widened to float64, where no kink lies
+    within rounding of the inputs: loss rtol 1e-12, every gradient within
+    1e-9 relative L2;
   * JAX's "5 steps lower the loss" case, on the port;
   * the trainer's command line: a synthetic run that checkpoints, a resume
     of that checkpoint that reproduces its parameters exactly, a resume of
     the committed reference-layout fixture, and the ``--data-root`` run on
     a capture converted by the port's ``data_process convert``.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -202,10 +208,15 @@ def _step_inputs():
     return inputs, targets
 
 
+NUDGES = (1e-7, -1e-7, 3e-7, -3e-7)
+
+
 @pytest.fixture(scope="module")
 def jax_step():
     """JAX's loss and gradients at the inputs and at the image scaled by
-    (1 + 1e-7), and optax's parameters after one AdamW step at lr 1e-4."""
+    (1 + s) for each s in NUDGES, optax's parameters after one AdamW step at
+    lr 1e-4, and how far that update moves (relative L2 over the model)
+    when it is taken from a nudged gradient, the most over NUDGES."""
     inputs, targets = _step_inputs()
     model = jax_make_cutr(dimension=192, depth_model=True)
     batch = JaxFrameBatch(**{k: jnp.asarray(v) for k, v in inputs.items()})
@@ -217,15 +228,26 @@ def jax_step():
     value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
     jt = {k: jnp.asarray(v) for k, v in targets.items()}
     loss, grads = value_and_grad(params, batch, jt)
-    nudged = JaxFrameBatch(**{**{k: jnp.asarray(v) for k, v in inputs.items()},
-                              "image": jnp.asarray(inputs["image"] * np.float32(1 + 1e-7))})
-    _, grads_nudged = value_and_grad(params, nudged, jt)
-    updates, _ = tx.update(grads, tx.init(params), params)
-    stepped = optax.apply_updates(params, updates)
+    p0 = from_flax_params(jax.tree.map(np.asarray, params))
+
+    def step(g):
+        updates, _ = tx.update(g, tx.init(params), params)
+        stepped = from_flax_params(jax.tree.map(np.asarray, optax.apply_updates(params, updates)))
+        return stepped, {n: stepped[n] - p0[n] for n in stepped if not _no_grad_param(n)}
+
+    stepped, update = step(grads)
+    grads_nudged, update_spread = [], 0.0
+    for s in NUDGES:
+        nudged = JaxFrameBatch(**{**{k: jnp.asarray(v) for k, v in inputs.items()},
+                                  "image": jnp.asarray(inputs["image"] * np.float32(1 + s))})
+        g_n = value_and_grad(params, nudged, jt)[1]
+        grads_nudged.append(from_flax_params(jax.tree.map(np.asarray, g_n)))
+        u_n = step(g_n)[1]
+        off = sum(float((u_n[n] - update[n]).norm()) ** 2 for n in update)
+        update_spread = max(update_spread, (off / sum(float(u.norm()) ** 2 for u in update.values())) ** 0.5)
     return dict(params=jax.tree.map(np.asarray, params), loss=float(loss),
                 grads=from_flax_params(jax.tree.map(np.asarray, grads)),
-                grads_nudged=from_flax_params(jax.tree.map(np.asarray, grads_nudged)),
-                stepped=from_flax_params(jax.tree.map(np.asarray, stepped)),
+                grads_nudged=grads_nudged, stepped=stepped, update_spread=update_spread,
                 inputs=inputs, targets=targets)
 
 
@@ -243,24 +265,45 @@ def test_train_step_matches_jax(jax_step):
     """One port step against JAX's loss, gradients and optax update.
 
     The gradient bound is 1e-3 of each tensor's JAX norm plus twice the
-    JAX package's own spread: how far its gradient moves when the image is
-    scaled by (1 + 1e-7), a float32 rounding of the input.  CuTR's gradient
-    is piecewise: ReLUs in the decoder's FFN, its rpe MLPs and the heads sit
-    a few 1e-7 from their kink, and a rounding-level change of the forward
-    flips some of them.  Measured (CPU, torch 2.13 / jax 0.9): the JAX
-    spread reaches 1.0e-2 on decoder layer 2 and 1.2e-3 on the backbone; the
-    port against JAX reaches the same 1.0e-2 / 1.5e-3, and at most 2e-5 on
-    every head.  Gradients that vanish in exact arithmetic (a key bias does
-    not move a softmax; norms ~1e-8) are held against 1e-4 absolute.
+    JAX package's own spread: the most its gradient moves when the image is
+    scaled by (1 + s), s in NUDGES (float32 roundings of the input).  CuTR's
+    gradient is piecewise: ReLUs in the decoder's FFN, its rpe MLPs and the
+    heads sit a few 1e-7 from their kink, and a rounding-level change of the
+    forward flips some of them, so one nudge samples the spread once and
+    can land on the near side.  Measured (CPU, torch 2.13 / jax 0.9, AMD
+    EPYC): ``backbone.0.pos_embed``'s JAX spread is 1.39e-3 at +1e-7 but
+    8.53e-3 / 1.21e-2 / 1.23e-2 at -1e-7 / +3e-7 / -3e-7, and the port's
+    error there 8.32e-3; decoder layer 5's rpe MLP moves 1.6e-4 at +1e-7
+    and 0.32 at -1e-7 in JAX alone, the port 0.32.  Over the four nudges the
+    port's error is at most 1.51 x JAX's spread on every tensor (one nudge:
+    322 of 435 tensors out of 1e-3 + 2 x spread).  That this is JAX's own
+    spread and not a fault of the port is what
+    ``test_train_step_matches_jax_in_float64`` shows.  Gradients that
+    vanish in exact arithmetic (a key bias does not move a softmax; norms
+    ~1e-8) are held against 1e-4 absolute.
 
     The update (parameters after the step less before) is held against
     optax's: wherever the two gradients agree within 10% and lie 100 x
     Adam's eps above zero, the same sign and within 1e-2 lr (measured
     4.8e-3 lr, 0 sign differences); those elements at least 90% of the
-    model's (measured 93.6%); the relative L2 error of the whole update at
-    most 0.1 (measured 3.2e-2: Adam's first step is lr x sign(g), so an
+    model's, or as many as JAX's own gradient keeps within 10% of itself
+    under the fewest-keeping nudge if that is fewer (measured: the port
+    89.0%; JAX against itself 90.8% / 86.3% / 84.1% / 84.1% under the four
+    nudges); the relative L2 error of the whole update at
+    most 0.1, or JAX's own under the nudges (the most over NUDGES) if that
+    is more (measured: the port 0.106, JAX against itself 0.127; 3.2e-2
+    on another CPU).  Adam's first step is lr x sign(g), so an
     element whose gradient sits near a kink or near zero moves the other
-    way; a skipped step would be 1 off, a reversed one 2).
+    way; a skipped step would be 1 off, a reversed one 2).  Every
+    parameter lies within 2 x lr of optax's, less one float32 spacing of
+    its value: a reversed step is 2 lr off before the two results are
+    stored (measured 2 lr + 3.3e-8 at parameters of 1.0, spacing 1.2e-7).
+
+    The heads' parameters with no ReLU between them and the loss (the
+    class heads and each MLP head's last layer) hold 1e-3 alone (measured
+    1.3e-5).  A head MLP's hidden layers have their own ReLU kinks:
+    ``decoder.predictors.5.2.mlp.layers.0`` moves 5.4e-2 in JAX alone under
+    three of the four nudges, and the port's error there is that 5.4e-2.
     """
     ref = jax_step
     model = _port_model(ref["params"])
@@ -283,12 +326,15 @@ def test_train_step_matches_jax(jax_step):
             torch.testing.assert_close(p.detach(), ref["stepped"][name], rtol=0, atol=1e-7)
             continue
         norm = max(float(want.norm()), 1e-4)
-        spread = float((ref["grads_nudged"][name] - want).norm()) / norm
+        spread = max(float((g_n[name] - want).norm()) for g_n in ref["grads_nudged"]) / norm
         err = float((g - want).norm()) / norm
         worst[name] = (err, spread)
         assert err <= 1e-3 + 2 * spread, (name, err, spread)
-        # one AdamW step: every parameter within 2 x lr of optax's
-        diff = float((p.detach() - ref["stepped"][name]).abs().max())
+        # one AdamW step: every parameter within 2 x lr of optax's (a step
+        # that a kink reverses is 2 lr off), up to the float32 rounding of
+        # the two stored results: one spacing at the parameter's magnitude
+        ulp = torch.from_numpy(np.spacing(np.abs(p0[name].numpy())))
+        diff = float(((p.detach() - ref["stepped"][name]).abs() - ulp).max())
         assert diff <= 2 * LR, (name, diff)
         # the update against optax's where the two gradients agree (within
         # 10%, and 100 x Adam's eps above zero): same sign, within 1e-2 lr
@@ -301,12 +347,88 @@ def test_train_step_matches_jax(jax_step):
     # those elements are most of the model, and the whole update is optax's
     # (a skipped step is 1 off, a reversed one 2)
     u_t, u_j = (torch.cat(u) for u in zip(*updates))
-    assert n_sure >= 0.9 * u_t.numel(), (n_sure, u_t.numel())
-    assert float((u_t - u_j).norm() / u_j.norm()) <= 0.1
+    names = [n for n, _ in model.named_parameters() if not _no_grad_param(n)]
+    jax_sure = min(sum(int((((g_n[n] - ref["grads"][n]).abs() <= 0.1 * ref["grads"][n].abs())
+                             & (ref["grads"][n].abs() > 100 * ADAM_EPS)).sum()) for n in names)
+                   for g_n in ref["grads_nudged"])
+    assert n_sure >= min(0.9 * u_t.numel(), jax_sure), (n_sure, jax_sure, u_t.numel())
+    assert float((u_t - u_j).norm() / u_j.norm()) <= max(0.1, ref["update_spread"])
     assert sum(_no_grad_param(n) for n, _ in model.named_parameters()) == 26
-    # the heads, where no kink lies between the loss and the parameter, hold 1e-3 alone
-    heads = [v[0] for n, v in worst.items() if n.startswith("decoder.predictors.")]
-    assert heads and max(heads) <= 1e-3
+    # the heads' parameters with no ReLU between them and the loss (each
+    # head MLP's last layer, the single-layer heads) hold 1e-3 alone
+    heads = [v[0] for n, v in worst.items()
+             if n.startswith("decoder.predictors.") and not re.search(r"\.mlp\.layers\.[01]\.", n)]
+    assert len(heads) == 6 * 6 and max(heads) <= 1e-3
+
+
+_FLOAT64_STEP = r"""
+import json, sys
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+# Both packages name float32 where they pin a precision (coordinate
+# decoding, softmax and norm statistics, constants, the converter); rebind
+# those names before importing them, so that every operation of both steps
+# runs in float64.
+jnp.float32 = jnp.float64
+np.float32 = np.float64
+torch.float32 = torch.float64
+torch.Tensor.float = lambda self, *a, **k: self.to(torch.float64)
+torch.set_default_dtype(torch.float64)
+sys.path.insert(0, "tests")
+import test_torch_train as T
+from boxfusion_tpu_torch.train.step import batch_loss
+
+inputs, targets = T._step_inputs()
+batch = T.JaxFrameBatch(**{k: jnp.asarray(v) for k, v in inputs.items()})
+params = jax.jit(T.jax_make_cutr(dimension=192, depth_model=True).init)(jax.random.PRNGKey(0), batch)
+params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+model = T.jax_make_cutr(dimension=192, depth_model=True, dtype=jnp.float64)
+train_step, _ = T.jax_make_train_step(model, learning_rate=T.LR, weight_decay=T.WD)
+loss_fn = dict(zip(train_step.__code__.co_freevars,
+                   (c.cell_contents for c in train_step.__closure__)))["loss_fn"]
+loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, batch, {k: jnp.asarray(v) for k, v in targets.items()})
+grads = T.from_flax_params(jax.tree.map(np.asarray, grads))
+
+port = T.make_cutr(192, depth_model=True, device="cpu", dtype=torch.float64)
+port.load_state_dict(T.from_flax_params(jax.tree.map(np.asarray, params)), strict=True)
+port_loss = batch_loss(port, T._torch_batch(inputs), {k: torch.from_numpy(v) for k, v in targets.items()})
+port_loss.backward()
+errs = {n: float((p.grad - grads[n]).norm()) / max(float(grads[n].norm()), 1e-4)
+        for n, p in port.named_parameters() if not T._no_grad_param(n)}
+print(json.dumps(dict(loss=float(loss), port_loss=float(port_loss.detach()), errs=errs,
+                      dtypes=sorted({str(p.grad.dtype) for p in port.parameters() if p.grad is not None}),
+                      jax_dtypes=sorted({str(g.dtype) for g in grads.values()}))))
+"""
+
+
+def test_train_step_matches_jax_in_float64():
+    """The train step of ``test_train_step_matches_jax`` with both stacks in
+    float64 (a child process: JAX's x64 mode is global).  At float32 the two
+    gradients differ by as much as JAX's own differ under a rounding of the
+    image, because rounding moves the forward across ReLU kinks; in float64
+    no kink lies within rounding of the inputs, so a port that computes
+    JAX's function meets it to rounding, and one that does not, does not.
+    Measured (CPU, torch 2.13 / jax 0.9): loss 2e-15 relative, every one of
+    the 435 gradient tensors within 1.4e-12 relative L2 (pos_embed 2.8e-14).
+    Held: loss rtol 1e-12, gradients 1e-9."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", _FLOAT64_STEP], cwd=os.path.dirname(os.path.dirname(__file__)),
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["dtypes"] == got["jax_dtypes"] == ["torch.float64"]
+    assert abs(got["port_loss"] - got["loss"]) <= 1e-12 * abs(got["loss"])
+    assert len(got["errs"]) == 435  # every parameter but the 26 the loss does not reach
+    worst = max(got["errs"].items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-9, worst
 
 
 def test_zero_grad_parameters_decay_as_optax_decays_them():
