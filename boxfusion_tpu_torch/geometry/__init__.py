@@ -20,6 +20,7 @@ from boxfusion_tpu_torch.geometry.iou import (
     gated_pair_iou,
     obb_grid_iou,
     obb_intersect_mask,
+    pairwise_obb_iou,
 )
 
 __all__ = [
@@ -38,4 +39,5 @@ __all__ = [
     "gated_pair_iou",
     "obb_grid_iou",
     "obb_intersect_mask",
+    "pairwise_obb_iou",
 ]

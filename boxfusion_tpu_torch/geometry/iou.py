@@ -221,3 +221,38 @@ def gated_pair_iou(
     if static_pairs:
         vals = torch.where(flat[pair_idx], vals, 0.0)
     return pair_idx, vals, n_gated
+
+
+def pairwise_obb_iou(
+    corners: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    samples_per_axis: int = GRID_SAMPLES_PER_AXIS,
+    row_chunk: int = 8,
+) -> torch.Tensor:
+    """Full (N, N) OBB IoU matrix (the gated lattice IoU of every pair).
+
+    Computed ``row_chunk`` rows at a time, which bounds the live sample
+    tensors to (row_chunk * N, S, S, S) booleans.  Invalid rows / columns
+    (per ``valid``) and the diagonal get IoU 0.
+
+    Args:
+      corners: (N, 8, 3).
+      valid: optional (N,) mask.
+
+    Returns:
+      (N, N) IoU matrix (symmetric up to sampling).
+    """
+    n = corners.shape[0]
+    rows = []
+    for r0 in range(0, n, row_chunk):
+        m = min(row_chunk, n - r0)
+        a = corners[r0:r0 + m, None].expand(m, n, 8, 3).reshape(-1, 8, 3)
+        b = corners[None].expand(m, n, 8, 3).reshape(-1, 8, 3)
+        iou = obb_grid_iou_pairs(a, b, samples_per_axis)
+        rows.append(torch.where(obb_intersect_mask(a, b), iou, 0.0).reshape(m, n))
+    mat = torch.cat(rows) if rows else corners.new_zeros((0, 0))
+    keep = ~torch.eye(n, dtype=torch.bool, device=corners.device)
+    if valid is not None:
+        v = valid.to(torch.bool)
+        keep = keep & v[:, None] & v[None, :]
+    return torch.where(keep, mat, 0.0)

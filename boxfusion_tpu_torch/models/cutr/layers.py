@@ -200,8 +200,13 @@ def torch_bicubic_matrix(in_size: int, out_size: int, a: float = -0.75) -> np.nd
 
 @functools.lru_cache(maxsize=None)
 def _bicubic(in_size: int, out_size: int) -> torch.Tensor:
-    """``torch_bicubic_matrix`` as a CPU tensor, computed once per shape."""
-    return torch.from_numpy(torch_bicubic_matrix(in_size, out_size))
+    """``torch_bicubic_matrix`` as a CPU tensor, computed once per shape.
+
+    Made outside inference mode whatever the caller's mode: a cached
+    inference tensor could never be saved for backward, so a training step
+    after an inference pass in the same process would fail."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(torch_bicubic_matrix(in_size, out_size))
 
 
 def resize_pos_embed(pos: torch.Tensor, grid: int, out_hw: Sequence[int]) -> torch.Tensor:

@@ -85,7 +85,9 @@ def trace(log_dir: Optional[str] = None, device: DeviceLike = None) -> Iterator[
     CPU activity is always recorded; CUDA activity too when ``device``
     (default "cuda"; raises if there is none) is a card, which is
     synchronised before the profiler stops.  Yields the path of the trace
-    file, ``<log_dir>/trace.json`` (written when the block exits).
+    file, ``<log_dir>/trace.json``, written when the block exits, also when
+    it raises (the exception then propagates), as JAX's ``trace`` stops its
+    profiler in a ``finally``.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -96,11 +98,16 @@ def trace(log_dir: Optional[str] = None, device: DeviceLike = None) -> Iterator[
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield path
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    prof.export_chrome_trace(path)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            try:
+                yield path
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+    finally:
+        prof.export_chrome_trace(path)
 
 
 def annotate(name: str):

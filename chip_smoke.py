@@ -131,13 +131,32 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 record_function span) and its five longest idle gaps with
                 the host op through each; the trace's pst_search kernel
                 events must equal the wrapper's launch count over the run.
+ 14. tools   -- the A12b tools (boxfusion_tpu_torch/tools/):
+                profile_stress_ablate at full size (CuTR-768 bf16
+                detections, 512 px, 200 frames, gap 20, capacity 512) over
+                its four variants: ms a keyframe, world count, pst_search
+                launches; the full step's world equals trace_stress.replay's
+                on the same recording, and pst_search launches in the full
+                step only.  profile_clip_attn's five variants at B = 32, 64,
+                69, 96, 100, 128, 400 (ms per layer), and at each B one
+                layer's whole_seq_attention held against its twin on the
+                same q, k, v (attention_tolerance(bfloat16)), the attention
+                alone timed beside SDPA's flash backend.
+                profile_bench_real (CuTR-768 bf16 + CLIP ViT-L labels, fused
+                engine, 400 frames, gap 20): the per-keyframe split and the
+                pipelined runs, whose world equals the synced run's.
+                build_parity_fixture with one stage of 20 steps: the export
+                loads into CuTR-192 with no missing or unexpected key and
+                has the committed fixture's keys.  The three reference-parity
+                tools with the reference pointed at an empty directory: each
+                exits with status 2 and its one line.
 
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
 (every kernel's "launches_by_path": pst_search's and whole_seq_attention's
-the count of each path of phases 3, 7, 8, 9, 11, 12 and 13, the other two's
+the count of each path of phases 3, 7, 8, 9, 11, 12, 13 and 14, the other two's
 phase 11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
 "local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
 both attention entries also have "registers", "local_bytes",
@@ -755,20 +774,6 @@ def main_path_config():
     return c
 
 
-def lift_class_bias(model, delta: float = 3.2) -> None:
-    """bench.py's calibration: random-init logits sit at the focal prior
-    (score ~0.01), so +3.2 on every class head puts a realistic detection
-    load above the 0.3 filter.  FLOPs are unchanged."""
-    import torch
-
-    from boxfusion_tpu_torch.models.cutr.heads import ClassPredictor
-
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, ClassPredictor):
-                m.linear.bias += delta
-
-
 def clip_l14_config():
     """The CLIP ViT-L/14 image tower as bench.py sizes it for the card."""
     from boxfusion_tpu_torch.models.clip import CLIPConfig
@@ -812,6 +817,7 @@ def run_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(384, 512)
     from boxfusion_tpu_torch.data.synthetic import SyntheticSequence
     from boxfusion_tpu_torch.models.cutr import make_cutr
     from boxfusion_tpu_torch.runtime import CuTRDetector, OnlinePipeline
+    from boxfusion_tpu_torch.tools.common import lift_class_bias
 
     cfg = main_path_config()
     model = make_cutr(dimension, depth_model=True, device=device, seed=0,
@@ -1133,6 +1139,7 @@ def run_device_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(38
     from boxfusion_tpu_torch.data.synthetic import SyntheticSequence
     from boxfusion_tpu_torch.models.cutr import make_cutr
     from boxfusion_tpu_torch.runtime import CuTRDetector, DevicePipeline
+    from boxfusion_tpu_torch.tools.common import lift_class_bias
 
     cfg = main_path_config()
     cfg["association"]._data["engine"] = engine
@@ -1257,6 +1264,7 @@ def engine_config(label=False, bucketing=True):
 
 def make_main_model(device, dtype="bfloat16", dimension=768):
     from boxfusion_tpu_torch.models.cutr import make_cutr
+    from boxfusion_tpu_torch.tools.common import lift_class_bias
 
     model = make_cutr(dimension, depth_model=True, device=device, seed=0, dtype=dtype)
     lift_class_bias(model)
@@ -2450,6 +2458,190 @@ def phase_trace(device) -> dict:
     return by_tool
 
 
+# -------------------------------------------------------------------- phase 14
+def _counts(kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def tools_stress_ablate(device, zero, kernels) -> dict:
+    """profile_stress_ablate at full size on one recording of CuTR-768
+    detections; the full step's world equals trace_stress.replay's on the same
+    recording and configuration; pst_search launches in the full step only."""
+    from boxfusion_tpu_torch.runtime.device_pipeline import DevicePipeline
+    from boxfusion_tpu_torch.tools import profile_stress_ablate, trace_stress
+    from boxfusion_tpu_torch.tools.common import keyframes, tool_config
+
+    gap = 20
+    _, _, kf = keyframes(200, 512, gap)
+    dets = trace_stress.record_detections(device, kf, 768)
+    cfg = tool_config(gap, stress=True)
+    pipe = DevicePipeline(cfg, lambda fr: None, capacity=profile_stress_ablate.CAPACITY, device=device)
+    trace_stress.replay(pipe, kf, dets, int(cfg["detection"]["max_detections"]))
+    replay_world = int(pipe.state.n)
+    t0 = time.perf_counter()
+    worlds = {}
+    zero()
+    res = profile_stress_ablate.run(device, 200, 512, 768, gap, dets=dets, worlds=worlds, verbose=False)
+    launches = _counts(kernels)
+    rec = dict(phase="tools", tool="profile_stress_ablate", keyframes=len(kf), seconds=time.perf_counter() - t0,
+               variants={name: dict(ms_per_keyframe=ms, world=n, pst_search_launches=nl,
+                                    fused=int(worlds[name]["fusion_flag"].sum()),
+                                    dropped_world_capacity=worlds[name]["stats"]["dropped_world_capacity"])
+                         for name, (ms, n, nl) in res.items()},
+               trace_stress_replay_world=replay_world, launches=launches)
+    print(json.dumps(rec))
+    if res["full"][1] != replay_world:
+        raise RuntimeError(f"profile_stress_ablate: the full step ends with {res['full'][1]} world boxes, "
+                           f"trace_stress.replay with {replay_world}")
+    if res["full"][2] == 0 or any(res[name][2] for name in res if name != "full"):
+        raise RuntimeError(f"profile_stress_ablate: pst_search must launch in the full step only: {res}")
+    return launches
+
+
+def tools_clip_attn(device, zero, kernels) -> dict:
+    """profile_clip_attn's five variants at the engines' batches; at each B
+    one layer's whole_seq_attention output held against its plain twin on
+    the same q, k, v, and the attention alone timed beside SDPA's flash
+    backend with CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention, whole_seq_attention_reference
+    from boxfusion_tpu_torch.tools import profile_clip_attn as pca
+
+    t0 = time.perf_counter()
+    zero()
+    res = pca.run(device, pca.ENGINE_BATCHES, verbose=False)
+    launches = _counts(kernels)
+    atol, rtol = attention_tolerance(torch.bfloat16)
+    per_b = {}
+    for B, times in res.items():
+        x0, p = pca.inputs(B, device)
+        q, k, v = pca.qkv(x0, p)
+        got = whole_seq_attention(q, k, v, pca.H, pca.HD ** -0.5)
+        want = whole_seq_attention_reference(q, k, v, pca.H, pca.HD ** -0.5)
+        diff = (got.float() - want.float()).abs()
+        if not torch.isfinite(got).all() or float((diff - (atol + rtol * want.float().abs())).max()) > 0:
+            raise RuntimeError(f"profile_clip_attn B = {B}: whole_seq_attention disagrees with its twin "
+                               f"(max |diff| {float(diff.max())}, atol {atol} + rtol {rtol})")
+        attn_bytes = 4 * B * pca.T * pca.D * 2  # q, k, v read once, the output written once, bfloat16
+        q4, k4, v4 = (x.reshape(B, pca.T, pca.H, pca.HD).transpose(1, 2) for x in (q, k, v))
+        per_b[B] = dict(ms_per_layer=times, max_abs_err=float(diff.max()),
+                        kernel_attention_ms=cuda_ms(lambda: whole_seq_attention(q, k, v, pca.H, pca.HD ** -0.5), 20),
+                        flash_attention_ms=cuda_ms(lambda: pca.attention(q, k, v, "flash"), 20),
+                        # SDPA with its own choice of backend, as phase 2's library call
+                        sdpa_attention_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, scale=pca.HD ** -0.5), 20),
+                        attention_bound_ms=attn_bytes / PEAK_BYTES_PER_S * 1e3)
+    print(json.dumps(dict(phase="tools", tool="profile_clip_attn", seconds=time.perf_counter() - t0,
+                          layers_per_call=pca.LAYERS, atol=atol, rtol=rtol, by_batch=per_b, launches=launches)))
+    return launches
+
+
+def tools_bench_real(device, zero, kernels) -> dict:
+    """profile_bench_real at bench's sizes: the per-keyframe split and the
+    pipelined runs; the synced run and the pipelined run end with equal
+    worlds."""
+    import numpy as np
+
+    from boxfusion_tpu_torch.tools import profile_bench_real
+
+    t0 = time.perf_counter()
+    zero()
+    res = profile_bench_real.run(device, verbose=False)
+    launches = _counts(kernels)
+    split = res["split_ms"]
+    print(json.dumps(dict(
+        phase="tools", tool="profile_bench_real", seconds=time.perf_counter() - t0, keyframes=res["keyframes"],
+        columns=list(profile_bench_real.COLUMNS), first_ms=split[0].tolist(), kf_1_4_ms=split[1:5].tolist(),
+        median_ms=np.median(split, axis=0).tolist(), max_ms=split.max(axis=0).tolist(),
+        total_median_ms=float(np.median(split.sum(axis=1))), pipelined_kf_per_s=res["pipelined_kf_per_s"],
+        world_synced=res["n_synced"], world_pipelined=res["n_pipelined"], launches=launches)))
+    if res["n_synced"] != res["n_pipelined"]:
+        raise RuntimeError(f"profile_bench_real: the synced run ends with {res['n_synced']} world boxes, "
+                           f"the pipelined run with {res['n_pipelined']}")
+    return launches
+
+
+def tools_parity_fixture(device, zero, kernels, steps=20) -> dict:
+    """build_parity_fixture with one short stage: the export loads into
+    CuTR-192 with no missing or unexpected key, and its keys are the
+    committed fixture's."""
+    import torch
+
+    from boxfusion_tpu_torch.models.cutr.convert import load_torch_state_dict
+    from boxfusion_tpu_torch.tools import build_parity_fixture
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fixture.pth")
+        zero()
+        res = build_parity_fixture.run(device, os.path.join(tmp, "work"), out, stages=((steps, 1e-3),))
+        launches = _counts(kernels)
+        sd = torch.load(out, map_location="cpu", weights_only=True)["model"]
+    model_keys = set(load_torch_state_dict(sd, device=device).state_dict())
+    committed = set(torch.load(os.path.join(HERE, FIXTURE), map_location="cpu", weights_only=True)["model"])
+    print(json.dumps(dict(phase="tools", tool="build_parity_fixture", steps=steps, seconds=res["seconds"],
+                          steps_per_s=steps / res["seconds"], keys=len(sd), missing=len(model_keys - set(sd)),
+                          unexpected=len(set(sd) - model_keys), keys_equal_committed=set(sd) == committed,
+                          launches=launches)))
+    if set(sd) != model_keys or set(sd) != committed:
+        raise RuntimeError("build_parity_fixture: the export's keys are not CuTR-192's and the committed "
+                           f"fixture's ({len(model_keys - set(sd))} missing, {len(set(sd) - model_keys)} "
+                           f"unexpected, {len(set(sd) ^ committed)} apart from the fixture)")
+    return launches
+
+
+def tools_reference_refusal(device) -> None:
+    """The three reference-parity tools with blackbox.REF on an empty
+    directory: each exits with status 2 and its one line."""
+    import contextlib
+    import importlib
+    import io
+
+    from boxfusion_tpu_torch.tools import blackbox
+
+    saved = blackbox.REF
+    with tempfile.TemporaryDirectory() as tmp:
+        blackbox.REF = os.path.join(tmp, "reference")
+        try:
+            for name in ("run_blackbox_parity", "diagnose_parity_band", "profile_host_engine"):
+                mod = importlib.import_module(f"boxfusion_tpu_torch.tools.{name}")
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    rc = mod.main(["--device", str(device), "--workdir", os.path.join(tmp, "work")])
+                line = err.getvalue().strip()
+                print(json.dumps(dict(phase="tools", tool=name, rc=rc, message=line)))
+                if rc != 2 or os.path.join(blackbox.REF, "demo.py") not in line or "\n" in line:
+                    raise RuntimeError(f"{name}: without the reference it returned {rc} and printed {line!r}")
+        finally:
+            blackbox.REF = saved
+
+
+def phase_tools(device) -> dict:
+    """The A12b tools on the card, each path's kernels' launch counts zeroed
+    just before it and read just after; returns them by path."""
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+
+    import torch
+
+    kernels = (fitness_cells, pst_search, whole_seq_attention)
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    by_path = {}
+    with torch.inference_mode():
+        by_path["stress_ablate"] = tools_stress_ablate(device, zero, kernels)
+        by_path["clip_attn"] = tools_clip_attn(device, zero, kernels)
+        by_path["bench_real"] = tools_bench_real(device, zero, kernels)
+    by_path["parity_fixture"] = tools_parity_fixture(device, zero, kernels)
+    tools_reference_refusal(device)
+    return by_path
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2501,11 +2693,16 @@ def main() -> int:
         "pst_search events against its launch count")
     for tool, counts in phase_trace(device).items():
         by_path[tool] = {**counts, "tiled_attention": 0}
+    log("phase 14: the A12b tools (profile_stress_ablate, profile_clip_attn, profile_bench_real, "
+        "build_parity_fixture, the reference tools' refusal)")
+    for tool, counts in phase_tools(device).items():
+        by_path[tool] = {**counts, "tiled_attention": 0}
 
     # launches: each kernel's count over the path that runs it -- for
     # pst_search and whole_seq_attention the sum over the paths of phases 3,
-    # 7, 8, 9, 11, 12 and 13 (labelled host and device engines, every fused
-    # and batched run, the train steps, the native stream, the traced runs), each path's own count under
+    # 7, 8, 9, 11, 12, 13 and 14 (labelled host and device engines, every fused
+    # and batched run, the train steps, the native stream, the traced runs,
+    # the A12b tools), each path's own count under
     # "launches_by_path"; phase 2's run of the eager loop (multiview_fitness's
     # path, off the main path) for fitness_cells; the ablation for
     # tiled_attention; every kernel's count over phase 11's train steps (0:

@@ -104,3 +104,39 @@ def test_obb_grid_iou_and_block_match_jax():
     got = iou_block(ca, cb, device="cpu")
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     np.testing.assert_array_equal(got > NMS_THRESHOLD, want > NMS_THRESHOLD)
+
+
+def _rotated_unit_boxes(n, spacing=0.4):
+    """tests/test_geometry.py:231's scene: unit cubes 0.4 apart along x,
+    each under a random rotation (scipy, seed i)."""
+    from scipy.spatial.transform import Rotation
+
+    signs = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                      [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float64) / 2
+    boxes = [(Rotation.random(random_state=i).as_matrix() @ signs.T).T + [i * spacing, 0, 0]
+             for i in range(n)]
+    return np.stack(boxes).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,valid,row_chunk", [
+    (5, None, 8),                                    # the JAX package's own case
+    (11, [1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 1], 4),     # N not a multiple of row_chunk, a mask
+])
+def test_pairwise_obb_iou_matches_jax(n, valid, row_chunk):
+    """The (N, N) lattice OBB IoU against JAX's to 1e-6; the diagonal and
+    every invalid row and column are 0."""
+    from boxfusion_tpu.geometry.iou import pairwise_obb_iou as jax_pairwise_obb_iou
+    from boxfusion_tpu_torch.geometry import pairwise_obb_iou
+
+    corners = _rotated_unit_boxes(n)
+    v = None if valid is None else np.asarray(valid, bool)
+    want = np.asarray(jax_pairwise_obb_iou(jnp.asarray(corners), None if v is None else jnp.asarray(v),
+                                           row_chunk=row_chunk))
+    got = pairwise_obb_iou(torch.tensor(corners), None if v is None else torch.tensor(v),
+                           row_chunk=row_chunk).numpy()
+    assert got.shape == (n, n)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(np.diag(got), 0.0)
+    assert (got[~np.eye(n, dtype=bool)] > 0).any()  # neighbours 0.4 apart overlap
+    if v is not None:
+        assert not got[~v].any() and not got[:, ~v].any()

@@ -35,12 +35,13 @@ def _all_modules():
 
 def test_port_imports_no_jax_and_no_reference_package():
     """Every module imports in a fresh interpreter without pulling in jax,
-    flax or the JAX package."""
+    flax, the JAX package, or the repo's ``tools/`` and ``tests/`` (the JAX
+    tools and the black-box harness)."""
     code = (
         "import importlib, json, sys\n"
         f"mods = {_all_modules()!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'boxfusion_tpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'boxfusion_tpu', 'tools', 'tests'))\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -59,7 +60,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "structures", "structures.instances", "structures.boxes3d", "structures.sensor",
                 "native", "native.loader", "utils.profiling", "utils.viz", "tools.common",
                 "tools.trace_keyframe", "tools.trace_stress", "tools.profile_keyframe",
-                "tools.profile_stress", "tools.profile_detector", "tools.profile_fused"):
+                "tools.profile_stress", "tools.profile_detector", "tools.profile_fused",
+                "tools.profile_stress_ablate", "tools.profile_clip_attn", "tools.profile_bench_real",
+                "tools.blackbox", "tools.build_parity_fixture", "tools.run_blackbox_parity",
+                "tools.diagnose_parity_band", "tools.profile_host_engine"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 

@@ -6,7 +6,8 @@ Chrome trace whose answers are known: ``aggregate`` (by name, device or CPU
 categories), ``device_activity`` (busy share of a span as the union of the
 device's intervals, idle gaps with the host op running through each) and
 ``count_events``.  ``trace()`` on the CPU writes a Chrome trace that
-``load_trace`` reads back, with the ``annotate`` span and the CPU ops.  Each
+``load_trace`` reads back, with the ``annotate`` span and the CPU ops, also
+when the traced block raises (the exception reaching the caller).  Each
 ported tool runs from its ``main`` with ``--device cpu`` at a tiny size.
 """
 import itertools
@@ -99,6 +100,24 @@ def test_trace_on_the_cpu_writes_a_chrome_trace(tmp_path):
     assert len(act["gaps"]) == 1 and act["gaps"][0]["ms"] == pytest.approx(act["span_ms"])
 
 
+def test_trace_keeps_its_trace_when_the_block_raises(tmp_path):
+    """As JAX's ``trace`` stops its profiler in a ``finally``: a block that
+    raises still leaves a readable trace, and the exception reaches the
+    caller."""
+    class Boom(Exception):
+        pass
+
+    with pytest.raises(Boom, match="inside the trace"):
+        with profiling.trace(str(tmp_path / "tr"), device="cpu") as path:
+            with profiling.annotate("block"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            raise Boom("inside the trace")
+    events = profiling.load_trace(path)
+    assert path == str(tmp_path / "tr" / "trace.json")
+    assert any(e["name"] == "block" and e["cat"] == "user_annotation" for e in events)
+    assert any(r[0] == "aten::mm" for r in profiling.aggregate(events, on_device=False))
+
+
 def test_trace_keyframe_on_the_cpu(tmp_path, capsys):
     from boxfusion_tpu_torch.tools import trace_keyframe
 
@@ -120,6 +139,10 @@ def test_trace_keyframe_on_the_cpu(tmp_path, capsys):
     ("profile_detector", ["--frames", "2", "--size", "128"]),
     ("profile_fused", ["--dim", "192", "--size", "256", "--clip-width", "64", "--clip-layers", "1",
                        "--reps", "1", "--steps", "1"]),
+    ("profile_stress_ablate", ["--frames", "11", "--size", "128", "--gap", "10", "--reps", "1"]),
+    ("profile_clip_attn", ["--batch", "1", "--layers", "1", "--reps", "1"]),
+    ("profile_bench_real", ["--dim", "192", "--size", "256", "--frames", "21", "--clip-width", "64",
+                            "--clip-layers", "1", "--reps", "1"]),
 ])
 def test_tools_run_on_the_cpu(tool, args, tmp_path, capsys):
     import importlib
