@@ -1,10 +1,11 @@
 """Dissect bench's real path: where do a keyframe's milliseconds go?
 
-Port of ``tools/profile_bench_real.py``.  Bench's real path: CuTR-768 in
-bfloat16 (random weights, seed 0, class-head bias lifted by 3.2 as bench.py
-calibrates it), the CLIP ViT-L/14 labeler (bfloat16, random weights, seed 0)
-over 473 random text features (seed 1), ``FusedDevicePipeline`` with
-capacity 256 on a synthetic 400-frame stream at 512 px, gap 20.
+Port of ``tools/profile_bench_real.py``.  Bench's real path, built by
+``boxfusion_tpu_torch/bench.py``'s builders: CuTR-768 in bfloat16 (random
+weights, seed 0, class-head bias lifted by 3.2), the CLIP ViT-L/14 labeler
+(bfloat16, quick-GELU, random weights, seed 0) over 473 random text features
+(seed 1), ``FusedDevicePipeline`` with capacity 256 on a synthetic
+400-frame stream at 512 px, gap 20.
 
 After a warm-up (the keyframes of the first 2 gaps + 1 frames), each
 keyframe is timed alone, the card synchronised after it, in four parts:
@@ -34,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from boxfusion_tpu_torch.tools.common import keyframes, lift_class_bias, sync, tool_config
+from boxfusion_tpu_torch.tools.common import sync, tool_config
 from boxfusion_tpu_torch.utils.device import resolve_device
 
 COLUMNS = ("pack", "shape key", "upload+dispatch", "device sync")
@@ -42,19 +43,18 @@ CAPACITY = 256  # world slots, bench's
 
 
 def build(device, dim=768, size=512, n_frames=400, gap=20, clip_width=1024, clip_layers=24):
-    """(pipeline, frames) of bench's real path at these sizes."""
-    from boxfusion_tpu_torch.models.clip import CLIPConfig, OpenVocabLabeler
-    from boxfusion_tpu_torch.models.cutr import make_cutr
+    """(pipeline, frames) of bench's real path at these sizes: CuTR, the
+    labeler and the frames from ``boxfusion_tpu_torch/bench.py``'s builders
+    (the card's workload: bfloat16, the ViT-L/14 tower cut to
+    ``clip_width`` x ``clip_layers``)."""
+    from boxfusion_tpu_torch import bench
     from boxfusion_tpu_torch.runtime.detector import CuTRDetector
     from boxfusion_tpu_torch.runtime.fused import FusedDevicePipeline
 
-    model = make_cutr(dim, depth_model=True, device=device, dtype="bfloat16")
-    lift_class_bias(model, 3.2)
-    _, frames, _ = keyframes(n_frames, size, gap)
-    clip_cfg = CLIPConfig(patch=14, width=clip_width, layers=clip_layers, heads=max(clip_width // 64, 1),
-                          embed_dim=clip_width, dtype="bfloat16")
-    tf = np.random.RandomState(1).randn(473, clip_width).astype(np.float32)
-    labeler = OpenVocabLabeler([f"c{i}" for i in range(473)], tf, cfg=clip_cfg, device=device).init_random(0)
+    wl = {**bench._workload(True), "dim": dim, "S": size, "n_frames": n_frames, "gap": gap}
+    model, _ = bench._build_model(device, wl)
+    _, frames = bench._frames(wl)
+    labeler = bench._make_labeler(True, device, clip_width, clip_layers)
     pipe = FusedDevicePipeline(tool_config(gap), CuTRDetector(model, device=device), labeler=labeler,
                                capacity=CAPACITY, device=device)
     return pipe, frames

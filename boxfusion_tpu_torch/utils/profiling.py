@@ -18,10 +18,13 @@ And what reads such a trace, shared by the tracers
   * ``device_activity``: within one ``annotate`` span, the share of the
     span in which the device ran something (the union of its kernel, memcpy
     and memset intervals) and the longest idle gaps, each with the host op
-    that was running through it.
+    that was running through it;
+  * ``device_ms_by_span``: the device's milliseconds by the ``annotate``
+    span whose host code launched them.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
@@ -36,6 +39,7 @@ from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation")
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")  # the host calls that enqueue device work
 
 
 class StageTimer:
@@ -209,3 +213,29 @@ def count_events(events: Sequence[dict], name_part: str, span: Optional[str] = N
     lo, hi = _span(events, span) if span is not None else (float("-inf"), float("inf"))
     return sum(1 for e in events if e.get("cat") in DEVICE_CATEGORIES and name_part in e.get("name", "")
                and lo <= float(e["ts"]) <= hi)
+
+
+def device_ms_by_span(events: Sequence[dict], names: Sequence[str]) -> Dict[str, float]:
+    """Device milliseconds (kernel, memcpy and memset events) by the span
+    that launched them: each event is charged to the ``annotate`` span among
+    ``names`` (every instance of it; the spans must not overlap) in which
+    the CUDA API call with the event's correlation id started, and
+    to "other" when no such span holds that call.  The call and the spans
+    are stamped on the host's clock, so no mapping between the two clocks
+    enters."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
+                   for e in events if e.get("cat") == "user_annotation" and e.get("name") in names)
+    starts = [a for a, _, _ in spans]
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") in LAUNCH_CATEGORIES and "correlation" in e.get("args", {})}
+    ms = dict.fromkeys((*names, "other"), 0.0)
+    for e in events:
+        if e.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        owner, ts = "other", launched.get(e.get("args", {}).get("correlation"))
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and ts <= spans[i][1]:
+                owner = spans[i][2]
+        ms[owner] += float(e.get("dur", 0.0)) / 1e3
+    return ms

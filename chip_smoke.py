@@ -150,13 +150,28 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 has the committed fixture's keys.  The three reference-parity
                 tools with the reference pointed at an empty directory: each
                 exits with status 2 and its one line.
+  15. bench   -- the port's bench (boxfusion_tpu_torch/bench.py), its five
+                phases in this process at full width: CuTR-768 bf16, CLIP
+                ViT-L/14 bf16, 512 px, capacity 2048, 128 crops, gap 20, at
+                half depth (BENCH_CUTS: 2 runs, 200 frames; printed).
+                Checked: the headline not saturated and its world not empty,
+                every headline run ending in the same world (count and
+                stats), no secondary figure left out, 0 < detector_mfu <=
+                1.05, the measured bf16 matmul ceiling at most 1.05 x the
+                table peak, pst_search and whole_seq_attention launched on
+                the headline.  One headline run at the record's 400 frames
+                under torch.profiler: busy share, device ms by the keyframe
+                stage that launched them, crops per keyframe.  Then
+                profile_gap1 and profile_r5 (gap1, stages, det) at 40
+                frames, each launching both kernels.  whole_seq_attention
+                held against its twin at every shape these paths gave it.
 
 Every phase prints one JSON record per line.  After them come the card's name
 and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
 (every kernel's "launches_by_path": pst_search's and whole_seq_attention's
-the count of each path of phases 3, 7, 8, 9, 11, 12, 13 and 14, the other two's
+the count of each path of phases 3, 7, 8, 9, 11, 12, 13, 14 and 15, the other two's
 phase 11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
 "local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
 both attention entries also have "registers", "local_bytes",
@@ -2642,12 +2657,223 @@ def phase_tools(device) -> dict:
     return by_path
 
 
+# -------------------------------------------------------------------- phase 15
+BENCH_BUDGET_S = 1100.0  # a phase's seconds: enough for every secondary figure of the headline
+# the bench's phases run at full width and half depth: 2 headline runs (the
+# equal-world check needs two) over 200 frames (10 keyframes at gap 20; the
+# secondaries follow: gap 1 over 50 keyframes, 4 lanes x 100 frames); the
+# traced headline run keeps the record's 400 frames
+BENCH_CUTS = dict(n_runs=2, n_frames=200)
+TOOL_FRAMES = 40  # the tools' stream: 10 keyframes at gap 1 (the bench's 400: 100)
+MFU_LIMIT = 1.05
+STAGES = ("detect", "label", "step")  # a fused keyframe's parts (runtime/fused.py:fused_keyframe)
+
+
+def bench_phases(device, zero, kernels) -> dict:
+    """The port's bench phases in this process at BENCH_CUTS; each phase's
+    record, its kernels' launches, counted from 0, and the whole_seq_attention
+    shapes its tower calls gave."""
+    from boxfusion_tpu_torch import bench
+
+    wl = dict(bench._workload(True), **BENCH_CUTS)
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in bench.PHASE_ORDER:
+            path = os.path.join(tmp, f"{name}.json")
+            t0 = time.perf_counter()
+            zero()
+            with AttentionBatches() as att:
+                bench.PHASES[name](path, BENCH_BUDGET_S, device, wl)
+            launches = _counts(kernels)
+            with open(path) as f:
+                rec = json.load(f)
+            rec.pop("on_card", None)
+            recs[name] = dict(rec, seconds=time.perf_counter() - t0, launches=launches,
+                              attention_shapes=sorted(att.shapes))
+            print(json.dumps(dict(phase="bench", bench_phase=name, **recs[name])))
+    return recs
+
+
+def check_bench(recs: dict) -> None:
+    """The record's own checks: no saturation and a world with boxes, every
+    headline run ending in the same world, no secondary figure left out, an
+    MFU in (0, 1.05], a measured matmul ceiling at most 1.05 x the table
+    peak, and both kernels of the path launched on the headline."""
+    micro, head = recs["micro"], recs["headline"]
+    if head["headline_saturated"] or head["world_boxes_final_run"] <= 0:
+        raise RuntimeError(f"bench headline: saturated {head['headline_saturated']}, "
+                           f"{head['world_boxes_final_run']} world boxes")
+    if len(set(head["world_boxes_by_run"])) != 1 or any(
+            st != head["world_stats_final_run"] for st in head["world_stats_by_run"]):
+        raise RuntimeError(f"bench headline: the runs end in different worlds: {head['world_boxes_by_run']}, "
+                           f"{head['world_stats_by_run']}")
+    if head["skipped_figures"]:
+        raise RuntimeError(f"bench headline: figures left out: {head['skipped_figures']}")
+    mfu, peak = micro["detector_mfu"], micro["chip_peak_tflops_bf16"]
+    if mfu is None or not 0 < mfu <= MFU_LIMIT:
+        raise RuntimeError(f"bench micro: detector_mfu {mfu} outside (0, {MFU_LIMIT}]")
+    if micro["measured_peak_tflops_bf16_matmul"] > MFU_LIMIT * peak:
+        raise RuntimeError(f"bench micro: measured matmul ceiling {micro['measured_peak_tflops_bf16_matmul']} "
+                           f"TFLOP/s above {MFU_LIMIT} x the {peak} table peak")
+    check_search_launches(head["launches"], "bench headline")
+    if head["launches"]["whole_seq_attention"] <= 0:
+        raise RuntimeError("bench headline: whole_seq_attention was never launched")
+
+
+class StageSpans:
+    """Puts each fused keyframe's detect (the model's forward), label
+    (label_boost_core) and step (fused._step) in an annotate span of its
+    own, by wrapping the names fused_keyframe calls."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        from boxfusion_tpu_torch.runtime import fused
+        from boxfusion_tpu_torch.utils.profiling import annotate
+
+        def spanned(name, fn):
+            def call(*args, **kw):
+                with annotate(name):
+                    return fn(*args, **kw)
+            return call
+
+        self.saved = fused.label_boost_core, fused._step
+        fused.label_boost_core = spanned("label", fused.label_boost_core)
+        fused._step = spanned("step", fused._step)
+        self.model.forward = spanned("detect", self.model.forward)
+        return self
+
+    def __exit__(self, *exc):
+        from boxfusion_tpu_torch.runtime import fused
+
+        fused.label_boost_core, fused._step = self.saved
+        del self.model.forward  # back to the class's method
+
+
+def bench_headline_trace(device, zero, kernels) -> tuple:
+    """One headline run as the bench's record times it (400 frames at gap
+    20, 2048 slots, 128 crops), after its warm-up, under torch.profiler:
+    the device's busy share of the run, its milliseconds by the keyframe
+    stage that launched them (StageSpans; "other" is the upload, the unpack
+    and the flush), the host clock's stage seconds, the crops each keyframe
+    sent through the tower (its label bucket) and the top device rows.
+    Returns (launches, the whole_seq_attention shapes)."""
+    from collections import Counter
+
+    from boxfusion_tpu_torch import bench
+    from boxfusion_tpu_torch.runtime.detector import CuTRDetector
+    from boxfusion_tpu_torch.runtime.fused import FusedDevicePipeline
+    from boxfusion_tpu_torch.utils.profiling import (aggregate, annotate, device_activity, device_ms_by_span,
+                                                     load_trace, trace)
+
+    wl = bench._workload(True)
+    gap = wl["gap"]
+    model, _ = bench._build_model(device, wl)
+    labeler = bench._make_labeler(True, device)
+    _, frames = bench._frames(wl)
+    pipe = FusedDevicePipeline(bench._headline_cfg(True, wl), CuTRDetector(model, device=device), labeler=labeler,
+                               capacity=bench.HEADLINE_CAPACITY, device=device)
+    bench._warm(pipe, frames[: 2 * gap + 1], gap)
+    pipe.reset()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero()
+        with LabelClock(labeler) as clock, AttentionBatches() as att, StageSpans(model):
+            with trace(tmp, device) as path, annotate("headline"):
+                t_run = time.perf_counter()
+                pipe.run(frames, gap=gap, export=False)
+                sync(device)
+                run_s = time.perf_counter() - t_run
+        launches = _counts(kernels)
+        trace_mb = os.path.getsize(path) / 1e6
+        events = load_trace(path)
+    n_kf = int(pipe.state.stats[3])
+    act = device_activity(events, "headline", n_gaps=3)
+    by_stage = device_ms_by_span(events, STAGES)
+    rec = dict(phase="bench", bench_trace="headline", frames=len(frames), keyframes=n_kf,
+               traced_run_s=run_s, frames_per_s_traced=len(frames) / run_s, seconds=time.perf_counter() - t0,
+               trace_mb=trace_mb, launches=launches, **act,
+               device_ms_per_keyframe={k: v / n_kf for k, v in by_stage.items()},
+               host_ms_per_keyframe={k: 1e3 * v / n_kf for k, v in sorted(pipe.timings.items())},
+               label_crops_by_keyframe=clock.crops,
+               keyframes_by_label_bucket=dict(sorted(Counter(clock.crops).items())),
+               keyframes_without_crops=n_kf - len(clock.crops),
+               top=[dict(name=n[:100], ms=ms, count=c) for n, ms, c in aggregate(events, True)[:10]])
+    print(json.dumps(rec))
+    if act["n_device_events"] == 0 or by_stage["label"] <= 0 or by_stage["detect"] <= 0:
+        raise RuntimeError(f"bench headline trace: no device work charged to its stages: {by_stage}")
+    check_search_launches(launches, "bench headline trace")
+    return launches, att.shapes
+
+
+def phase_bench(device) -> dict:
+    """The port's bench at full width in this process (CuTR-768 bf16, CLIP
+    ViT-L/14 bf16, 512 px, capacity 2048, 128 crops, gap 20) at
+    BENCH_CUTS, checked; one headline run at full depth traced; then
+    profile_gap1 and profile_r5 (its three sections) at TOOL_FRAMES frames.
+    whole_seq_attention is held against its plain twin at every shape these
+    paths gave it.  Returns the launches of each path: the bench's phases
+    together, the traced run, each tool's run."""
+    import torch
+
+    from boxfusion_tpu_torch import bench
+    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
+    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
+    from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.tools import profile_gap1, profile_r5
+
+    kernels = (fitness_cells, pst_search, whole_seq_attention)
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    full = bench._workload(True)
+    print(json.dumps(dict(phase="bench", workload=full,
+                          cuts={k: [full[k], v] for k, v in BENCH_CUTS.items()},
+                          tool_frames=[full["n_frames"], TOOL_FRAMES])))
+    recs = bench_phases(device, zero, kernels)
+    check_bench(recs)
+    shapes = {tuple(s) for r in recs.values() for s in r["attention_shapes"]}
+    by_path = {"bench": {k.__name__: sum(r["launches"][k.__name__] for r in recs.values()) for k in kernels}}
+    by_path["bench_trace"], traced = bench_headline_trace(device, zero, kernels)
+    shapes |= traced
+
+    t0 = time.perf_counter()
+    zero()
+    with torch.inference_mode(), AttentionBatches() as att:
+        rates = profile_gap1.run(device, n_frames=TOOL_FRAMES)
+    by_path["profile_gap1"] = _counts(kernels)
+    shapes |= att.shapes
+    print(json.dumps(dict(phase="bench", tool="profile_gap1", frames=TOOL_FRAMES, keyframes_per_s=rates,
+                          seconds=time.perf_counter() - t0, launches=by_path["profile_gap1"],
+                          attention_shapes=sorted(att.shapes))))
+    t0 = time.perf_counter()
+    zero()
+    with AttentionBatches() as att:
+        r5 = {section: profile_r5.run(section, device, n_frames=TOOL_FRAMES) for section in ("gap1", "stages", "det")}
+    by_path["profile_r5"] = _counts(kernels)
+    shapes |= att.shapes
+    print(json.dumps(dict(phase="bench", tool="profile_r5", frames=TOOL_FRAMES, gap1=r5["gap1"],
+                          stage_ms=r5["stages"]["stage_ms"],
+                          det={tag: dict(ms=ms, gflop=fl / 1e9) for tag, (ms, fl) in r5["det"].items()},
+                          seconds=time.perf_counter() - t0, launches=by_path["profile_r5"],
+                          attention_shapes=sorted(att.shapes))))
+    for tool in ("profile_gap1", "profile_r5"):
+        check_search_launches(by_path[tool], tool)
+        if by_path[tool]["whole_seq_attention"] <= 0:
+            raise RuntimeError(f"{tool}: whole_seq_attention was never launched")
+    attention = check_path_attention(device, shapes, "bench path")
+    print(json.dumps(dict(phase="bench", attention_vs_twin=attention)))
+    return by_path
+
+
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as nvidia-smi prints them."""
+    from boxfusion_tpu_torch.bench import card
+
+    return "{name}, {power_limit}".format(**card())
 
 
 def main() -> int:
@@ -2697,12 +2923,18 @@ def main() -> int:
         "build_parity_fixture, the reference tools' refusal)")
     for tool, counts in phase_tools(device).items():
         by_path[tool] = {**counts, "tiled_attention": 0}
+    log("phase 15: the port's bench at full width (micro, headline, multistream, stages, stress), "
+        "a traced headline run, then profile_gap1 and profile_r5")
+    for path, counts in phase_bench(device).items():
+        by_path[path] = {**counts, "tiled_attention": 0}
 
     # launches: each kernel's count over the path that runs it -- for
     # pst_search and whole_seq_attention the sum over the paths of phases 3,
-    # 7, 8, 9, 11, 12, 13 and 14 (labelled host and device engines, every fused
-    # and batched run, the train steps, the native stream, the traced runs,
-    # the A12b tools), each path's own count under
+    # 7, 8, 9, 11, 12, 13, 14 and 15 (labelled host and device engines, every
+    # fused and batched run, the train steps, the native stream, the traced
+    # runs, the A12b tools, the bench's phases, its traced headline run and
+    # its two tools), each
+    # path's own count under
     # "launches_by_path"; phase 2's run of the eager loop (multiview_fitness's
     # path, off the main path) for fitness_cells; the ablation for
     # tiled_attention; every kernel's count over phase 11's train steps (0:

@@ -63,7 +63,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "tools.profile_stress", "tools.profile_detector", "tools.profile_fused",
                 "tools.profile_stress_ablate", "tools.profile_clip_attn", "tools.profile_bench_real",
                 "tools.blackbox", "tools.build_parity_fixture", "tools.run_blackbox_parity",
-                "tools.diagnose_parity_band", "tools.profile_host_engine"):
+                "tools.diagnose_parity_band", "tools.profile_host_engine", "bench", "tools.profile_gap1",
+                "tools.profile_r5"):
         assert f"boxfusion_tpu_torch.{new}" in mods, new
 
 

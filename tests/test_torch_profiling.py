@@ -5,7 +5,8 @@ summary, same report).  The trace readers are held on a small synthetic
 Chrome trace whose answers are known: ``aggregate`` (by name, device or CPU
 categories), ``device_activity`` (busy share of a span as the union of the
 device's intervals, idle gaps with the host op running through each) and
-``count_events``.  ``trace()`` on the CPU writes a Chrome trace that
+``count_events``, and ``device_ms_by_span`` (device work charged to the
+span that launched it).  ``trace()`` on the CPU writes a Chrome trace that
 ``load_trace`` reads back, with the ``annotate`` span and the CPU ops, also
 when the traced block raises (the exception reaching the caller).  Each
 ported tool runs from its ``main`` with ``--device cpu`` at a tiny size.
@@ -84,6 +85,28 @@ def test_aggregate_and_device_activity_on_a_synthetic_trace(tmp_path):
     assert profiling.count_events(events, "kernel", span="loop") == 3
     with pytest.raises(ValueError, match="0 'nope' spans"):
         profiling.device_activity(events, "nope")
+
+
+def test_device_ms_by_span_charges_work_to_the_launching_span():
+    """Two "detect" spans and a "step" span; each device event's launch
+    call (a CUDA API call of either category, by correlation id) decides
+    its span, not where the device ran it: kernel 3 runs inside "step" but
+    was launched in "detect"."""
+    x = lambda name, cat, ts, dur, **args: dict(ph="X", name=name, cat=cat, ts=ts, dur=dur, args=args)
+    events = [
+        x("detect", "user_annotation", 0, 10), x("step", "user_annotation", 10, 10),
+        x("detect", "user_annotation", 30, 10), x("aten::mm", "cpu_op", 1, 2),
+        x("cudaLaunchKernel", "cuda_runtime", 1, 1, correlation=1),
+        x("cudaLaunchKernel", "cuda_runtime", 12, 1, correlation=2),
+        x("cuLaunchKernelEx", "cuda_driver", 8, 1, correlation=3),
+        x("cudaMemcpyAsync", "cuda_runtime", 25, 1, correlation=4),
+        x("cudaLaunchKernel", "cuda_runtime", 31, 1, correlation=5),
+        x("k1", "kernel", 2, 4, correlation=1), x("k2", "kernel", 13, 6, correlation=2),
+        x("k3", "kernel", 14, 3, correlation=3), x("Memcpy HtoD", "gpu_memcpy", 26, 2, correlation=4),
+        x("k1", "kernel", 33, 5, correlation=5), x("k4", "kernel", 50, 7, correlation=99),
+    ]
+    got = profiling.device_ms_by_span(events, ("detect", "step"))
+    assert got == dict(detect=pytest.approx(0.012), step=pytest.approx(0.006), other=pytest.approx(0.009))
 
 
 def test_trace_on_the_cpu_writes_a_chrome_trace(tmp_path):
