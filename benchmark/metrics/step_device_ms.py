@@ -1,0 +1,10 @@
+"""Device milliseconds a keyframe's step stage launched (kernels, copies and
+fills charged to the ``bench.step`` span by correlation id), over the
+profiled keyframes."""
+
+
+def read(obs):
+    p = obs.profiled
+    if p is None or not p.spans_found.get("bench.step") or not p.keyframes:
+        return None
+    return p.span_device_s["bench.step"] / p.keyframes * 1e3

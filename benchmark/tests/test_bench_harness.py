@@ -1,0 +1,160 @@
+"""The harness on the CPU: a toy cell, added as new files, run end to end.
+
+    python -m pytest benchmark/tests -q
+
+The toy cell (``toycell.py``) is a configuration, a traffic mix, limits and
+a metric reader written into a temporary directory; the harness finds them
+by name beside the benchmark's own files.  The tests check the result
+line's schema with and without the trace, that no module of JAX or of the
+JAX package is loaded, that a run without a card prints nothing, and that
+``correct`` comes out false when the timed path is broken underneath.  The
+test marked ``cuda`` runs a real cell briefly and skips without a card.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from benchmark.harness.spec import BENCH_DIR, REPO
+from benchmark.tests.toycell import toy_cell
+
+CPU = torch.device("cpu")
+# the toy configuration's score filter (settings.detection.score_thresh)
+TOY_THRESH = 0.4
+
+
+def _run(tmp_path, seed=5, seconds=2.0, trace=False, limits=None):
+    import benchmark.run as run
+
+    return run.run_cell(toy_cell(str(tmp_path), limits), seed, seconds, trace, CPU)
+
+
+def _assert_schema(result, names):
+    line = json.loads(json.dumps(result))
+    assert list(line)[-1] == "checks"
+    for key in ("correct", "attempted", "failed", "metrics", "device"):
+        assert key in line
+    assert set(line["metrics"]) <= set(names)
+    for m in line["metrics"].values():
+        assert set(m) == {"value", "unit"} and isinstance(m["value"], float)
+    for c in line["checks"].values():
+        assert set(c) == {"value", "limit"}
+    assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(line["device"])
+
+
+def test_result_line_end_to_end(tmp_path):
+    result = _run(tmp_path)
+    result.pop("readings")
+    _assert_schema(result, ["frames_per_s", "keyframe_ms_p95", "peak_memory_gib", "setup_s"])
+    assert set(result["metrics"]) == {"frames_per_s", "keyframe_ms_p95", "peak_memory_gib", "setup_s"}
+    assert result["correct"] and result["attempted"] > 0 and result["failed"] == 0
+
+
+def test_result_line_traced_with_a_metric_added_as_a_file(tmp_path):
+    result = _run(tmp_path, trace=True)
+    readings = result.pop("readings")
+    bench = json.load(open(tmp_path / "BENCHMARK.json"))
+    _assert_schema(result, [m["name"] for m in bench["per_layer"]])
+    assert result["metrics"]["toy_keyframes"]["value"] == float(result["attempted"])
+    assert {"busy_s", "window_s"} <= set(result["device"])
+    assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert result["correct"] and readings["judged_steps"] >= 1
+
+
+def test_no_jax_module_is_loaded(tmp_path):
+    code = ("import sys, torch; sys.path.insert(0, %r); import benchmark.run as run; "
+            "from benchmark.tests.toycell import toy_cell; "
+            "run.run_cell(toy_cell(%r), 3, 1.0, False, torch.device('cpu')); "
+            "print('LOADED', run.forbidden_modules(), sorted({m.split('.')[0] for m in sys.modules} "
+            "& {'jax', 'jaxlib', 'flax', 'boxfusion_tpu'}))") % (REPO, str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "LOADED [] []"
+
+
+def test_without_a_card_no_result(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cmd = [sys.executable, os.path.join(REPO, "benchmark", "run.py"), "--workload", "ca1m.scan.cluttered",
+           "--seed", "2147483999", "--seconds", "1", "--trace", "0"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and out.stdout == ""
+
+
+def test_benchmark_files_alone_give_no_result(tmp_path):
+    shutil.copy(os.path.join(REPO, "BENCHMARK.json"), tmp_path / "BENCHMARK.json")
+    shutil.copytree(BENCH_DIR, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    cmd = [sys.executable, "benchmark/run.py", "--workload", "ca1m.scan.cluttered", "--seed", "1",
+           "--seconds", "1", "--trace", "0"]
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=tmp_path, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0 and out.stdout == ""
+
+
+def _fault(name, monkeypatch):
+    """Break the timed path underneath the engine."""
+    import dataclasses
+
+    from boxfusion_tpu_torch.models.clip.head import OpenVocabLabeler
+    from boxfusion_tpu_torch.models.cutr.model import CubifyTransformer
+    from boxfusion_tpu_torch.runtime import fused
+
+    if name == "half_the_detections_dropped":
+        forward = CubifyTransformer.forward
+
+        def dropped(self, *a, **k):
+            # the lower-scoring half of each frame's live rows falls under the
+            # score filter: live rows stay a prefix, as a truncated top-k leaves them
+            out = dict(forward(self, *a, **k))
+            scores = out["scores"]
+            live = (scores >= TOY_THRESH).sum(-1, keepdim=True)
+            rank = torch.arange(scores.shape[-1], device=scores.device)
+            out["scores"] = torch.where(rank >= (live + 1) // 2, torch.zeros_like(scores), scores)
+            return out
+        monkeypatch.setattr(CubifyTransformer, "forward", dropped)
+    elif name == "step_returns_its_state":
+        monkeypatch.setattr(fused, "_step", lambda state, *a, **k: state)
+    elif name == "world_answer_altered":
+        step = fused._step
+
+        def altered(*a, **k):
+            state = step(*a, **k)
+            return dataclasses.replace(state, xyzlhw=state.xyzlhw + 0.05)
+        monkeypatch.setattr(fused, "_step", altered)
+    else:
+        label = OpenVocabLabeler.label_boost_lanes
+
+        def broken(self, images, boxes, scores, hws, scale, coeff, budget=32):
+            if name == "half_the_label_batch":
+                return label(self, images, boxes, scores, hws, scale, coeff, budget=max(1, budget // 2))
+            new, cats, feats, overflow = label(self, images, boxes, scores, hws, scale, coeff, budget=budget)
+            cats = cats.clone()
+            cats[0, 0] = (cats[0, 0] + 1) % len(self.class_list)
+            return new, cats, feats, overflow
+        monkeypatch.setattr(OpenVocabLabeler, "label_boost_lanes", broken)
+
+
+@pytest.mark.parametrize("fault", ["step_returns_its_state", "world_answer_altered", "half_the_label_batch",
+                                   "label_answer_altered", "half_the_detections_dropped"])
+def test_a_broken_timed_path_is_not_correct(tmp_path, monkeypatch, fault):
+    _fault(fault, monkeypatch)
+    result = _run(tmp_path, seed=6)
+    assert not result["correct"], result["checks"]
+
+
+@pytest.mark.cuda
+def test_a_cell_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cmd = [sys.executable, os.path.join(REPO, "benchmark", "run.py"), "--workload", "ca1m.scan.cluttered",
+           "--seed", "2147483999", "--seconds", "5", "--trace", "0"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert line["correct"], line["checks"]
+    assert line["device"]["platform"] == "gpu" and line["device"]["count"] == 1
