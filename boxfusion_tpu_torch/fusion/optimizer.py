@@ -26,7 +26,7 @@ trajectory does not depend on when the loop stops.  With ``cfg.unroll`` that
 loop runs its fixed ``cfg.iters`` iterations and reads nothing back; without
 it (the default, as in the JAX package) it reads one flag per iteration --
 every object done? -- and stops early, as the ``while_loop`` does
-(utils/device.py:host_reads counts the reads).
+(utils/device.py:host_reads counts and times them, site ``fuse.done``).
 """
 from __future__ import annotations
 
@@ -164,7 +164,7 @@ def search_loop(xyzlhw0: torch.Tensor, pst: torch.Tensor, active: torch.Tensor, 
     done = ~active  # inactive slots are born converged
 
     for _ in range(cfg.iters):
-        if not cfg.unroll and host_reads.read(done.all()):
+        if not cfg.unroll and host_reads.read(done.all(), "fuse.done"):
             break
         success, mean_iou, mean_transform = _cal_transform(
             fitness(xyzlhw, ss, done), pst, ss, cfg.max_contributors)

@@ -13,8 +13,12 @@ decision.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from boxfusion_tpu_torch.utils.device import host_reads
 
 # Edge list used for midpoint augmentation (reference instances.py:493-512).
 _AUG_EDGES = np.array(
@@ -177,6 +181,7 @@ def gated_pair_iou(
     max_pairs: int = MAX_GATED_PAIRS,
     samples_per_axis: int = GRID_SAMPLES_PER_AXIS,
     static_pairs: bool = False,
+    read_site: Optional[str] = None,
 ):
     """(Q x A) gated pairwise OBB IoU under a fixed pair budget.
 
@@ -196,6 +201,9 @@ def gated_pair_iou(
         device-to-host read) and runs the lattice on the gated pairs only.
         True reads nothing: the lattice runs on min(max_pairs, Q * A) pairs,
         gated ones first, the others scored 0, and ``n_gated`` stays a tensor.
+      read_site: where given, the read of the gated count is counted and
+        timed under this site (``utils/device.py:host_reads``), as the
+        device engine's reads are; None leaves it uncounted.
 
     Returns:
       (pair_idx (k,) int64 flat row-major indices into Q*A, vals (k,) IoUs,
@@ -210,7 +218,11 @@ def gated_pair_iou(
         # stable: gated pairs first, each group in ascending flat index
         pair_idx = torch.sort(flat.to(torch.int8), descending=True, stable=True).indices[:k]
     else:
-        flat_idx = torch.nonzero(flat).reshape(-1)
+        if read_site is None:
+            flat_idx = torch.nonzero(flat).reshape(-1)
+        else:
+            with host_reads.waiting(read_site):
+                flat_idx = torch.nonzero(flat).reshape(-1)
         n_gated = int(flat_idx.numel())
         pair_idx = flat_idx[:max_pairs]
     if pair_idx.shape[0] == 0:

@@ -10,7 +10,8 @@ debugging and parity tests.
 What the step still asks of the host is counted: ``DevicePipeline.host_reads``
 is the number of device-to-host reads its keyframe steps made to steer loops
 and stage gates (runtime/device_step.py says which; the ``"unrolled"`` engine
-makes none).
+makes none), and ``timings["host_read_wait"]`` the host-clock seconds spent
+in them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from boxfusion_tpu_torch.runtime import device_step
 from boxfusion_tpu_torch.runtime.device_state import export_world, init_state
 from boxfusion_tpu_torch.runtime.device_step import DET_PACK_WIDTH, META_WIDTH, StepConfig
 from boxfusion_tpu_torch.utils.device import DeviceLike, host_reads, resolve_device
+from boxfusion_tpu_torch.utils.profiling import span
 
 _DET_KEYS = ("scores", "pred_boxes", "boxes3d", "R", "proj_xy", "category")
 
@@ -117,9 +119,15 @@ class DevicePipeline:
       device: where the state lives and the step runs (default "cuda";
         raises if there is none).
 
-    ``timings`` accumulates host-clock seconds per stage: "detect" (the
-    detector call), "label" (the labeler call) and "step" (the keyframe
-    step, its host reads included); ``host_reads`` counts those reads.
+    ``timings`` accumulates host-clock seconds per stage: "keyframe" (all of
+    ``process_keyframe``), "detect" (the detector call), "label" (the
+    labeler call), "step" (the keyframe step, its host reads included) and
+    the step's own loops ("step.nms", "step.correspond", "step.fuse");
+    ``host_reads`` counts those reads and ``timings["host_read_wait"]`` adds
+    up their wait.  Each stage is a ``boxfusion.<stage>`` span under a torch
+    profiler (``utils/profiling.span``).  Both are totals over the
+    pipeline's life: ``reset`` starts a new sequence, not a new measurement,
+    so a caller that measures one sequence zeroes them itself.
 
     No worker thread.  The JAX class hands uploads and the step to a
     one-thread executor, because a blocking upload there costs the caller
@@ -167,23 +175,24 @@ class DevicePipeline:
         self._step_error = None
         self._label_overflow = torch.zeros((), dtype=torch.int32, device=self.device)
 
-    def _time(self, stage: str, t0: float) -> None:
-        self.timings[stage] = self.timings.get(stage, 0.0) + time.perf_counter() - t0
-
     def _run_step(self, step, *args, stage: Optional[str] = "step") -> None:
-        """``self.state = step(self.state, *args)``, its host reads counted,
-        its host-clock time added to ``timings[stage]`` (``stage=None``: the
-        step times its own stages), a failure held back for the next call."""
-        t0 = time.perf_counter()
-        reads0 = host_reads.count
+        """``self.state = step(self.state, *args)``, its host reads counted
+        and their wait added to ``timings["host_read_wait"]``, its host-clock
+        time added to ``timings[stage]`` (``stage=None``: the step times its
+        own stages), a failure held back for the next call."""
+        reads0, wait0 = host_reads.count, host_reads.wait_s
         try:
-            self.state = step(self.state, *args)
+            if stage is None:
+                self.state = step(self.state, *args)
+            else:
+                with span(stage, self.timings):
+                    self.state = step(self.state, *args)
         except Exception as e:  # surfaced at the next process_keyframe or flush
             self._step_error = e
         finally:
             self.host_reads += host_reads.count - reads0
-            if stage is not None:
-                self._time(stage, t0)
+            self.timings["host_read_wait"] = (self.timings.get("host_read_wait", 0.0)
+                                              + host_reads.wait_s - wait0)
 
     def _raise_step_error(self) -> None:
         if self._step_error is not None:
@@ -191,7 +200,8 @@ class DevicePipeline:
             raise RuntimeError("an earlier device keyframe step failed") from err
 
     def reset(self) -> None:
-        """Fresh sequence state on the same device, same capacities."""
+        """Fresh sequence state on the same device, same capacities.
+        ``timings`` and ``host_reads`` run on (see the class docstring)."""
         self.flush()
         self.state = init_state(
             capacity=self.state.capacity,
@@ -200,8 +210,6 @@ class DevicePipeline:
             device=self.device,
         )
         self.count = 0
-        self.host_reads = 0
-        self.timings = {}
         self._label_overflow = torch.zeros((), dtype=torch.int32, device=self.device)
 
     def flush(self) -> None:
@@ -213,9 +221,12 @@ class DevicePipeline:
     @torch.inference_mode()
     def process_keyframe(self, frame) -> None:
         self._raise_step_error()
-        t0 = time.perf_counter()
-        det = self.detector(frame)
-        self._time("detect", t0)
+        with span("keyframe", self.timings):
+            self._keyframe(frame)
+
+    def _keyframe(self, frame) -> None:
+        with span("detect", self.timings):
+            det = self.detector(frame)
         image_dev = det.pop("image_dev", None)
         det = {k: v for k, v in det.items() if k in _DET_KEYS}
         kmax = int(self.cfg["detection"]["max_detections"])
@@ -235,34 +246,33 @@ class DevicePipeline:
             isinstance(v, torch.Tensor) for v in det.values()
         ):
             if device_label:
-                t0 = time.perf_counter()
-                if self.class_list is None:
-                    self.class_list = list(self.labeler.class_list) + [""]
-                h0, w0 = frame.image.shape[:2]
-                # raw-score filter BEFORE labeling (demo.py:138-148): masked
-                # rows score -1e9, never enter the label budget, and stay
-                # dropped by the step (whose score filter is bypassed, see
-                # __init__).
-                raw_ok = det["scores"] >= float(self.cfg["detection"]["score_thresh"])
-                masked = torch.where(raw_ok, det["scores"], -1e9)
-                new_scores, categories, _, overflow = self.labeler.label_boost_device(
-                    image_dev,
-                    det["pred_boxes"],
-                    masked,
-                    (h0, w0),
-                    float(self.cfg["detection"]["scale_box"]),
-                    float(self.cfg["box_fusion"]["clip_sim_coeff"]),
-                    budget=int(self.cfg["detection"]["max_label_boxes"]),
-                )
-                det["scores"] = torch.where(raw_ok.to(new_scores.device), new_scores, -1e9)
-                det["category"] = categories
-                # no-silent-caps: count live detections past the label budget
-                # (a device scalar; reported in run()'s summary)
-                self._label_overflow = self._label_overflow + overflow.to(self.device)
-                self._time("label", t0)
+                with span("label", self.timings):
+                    if self.class_list is None:
+                        self.class_list = list(self.labeler.class_list) + [""]
+                    h0, w0 = frame.image.shape[:2]
+                    # raw-score filter BEFORE labeling (demo.py:138-148): masked
+                    # rows score -1e9, never enter the label budget, and stay
+                    # dropped by the step (whose score filter is bypassed, see
+                    # __init__).
+                    raw_ok = det["scores"] >= float(self.cfg["detection"]["score_thresh"])
+                    masked = torch.where(raw_ok, det["scores"], -1e9)
+                    new_scores, categories, _, overflow = self.labeler.label_boost_device(
+                        image_dev,
+                        det["pred_boxes"],
+                        masked,
+                        (h0, w0),
+                        float(self.cfg["detection"]["scale_box"]),
+                        float(self.cfg["box_fusion"]["clip_sim_coeff"]),
+                        budget=int(self.cfg["detection"]["max_label_boxes"]),
+                    )
+                    det["scores"] = torch.where(raw_ok.to(new_scores.device), new_scores, -1e9)
+                    det["category"] = categories
+                    # no-silent-caps: count live detections past the label budget
+                    # (a device scalar; reported in run()'s summary)
+                    self._label_overflow = self._label_overflow + overflow.to(self.device)
             meta = pack_meta(frame, self.count)
             self._run_step(device_step.keyframe_step_devdet, det, meta, self.pst,
-                           self.step_cfg, kmax)
+                           self.step_cfg, kmax, self.timings)
             return
 
         det = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
@@ -274,30 +284,29 @@ class DevicePipeline:
         if self.labeler is not None and det["scores"].shape[0] > 0:
             from boxfusion_tpu_torch.models.clip.head import scale_boxes
 
-            t0 = time.perf_counter()
-            h0, w0 = frame.image.shape[:2]
-            boxes = scale_boxes(
-                det["pred_boxes"], h0, w0,
-                scale=float(self.cfg["detection"]["scale_box"]),
-            )
-            categories, _, sims = self.labeler(frame.image, boxes)
-            if self.class_list is None:
-                self.class_list = list(self.labeler.class_list) + [""]
-            cat_idx = np.asarray(
-                [self.class_list.index(c) if c in self.class_list else 0 for c in categories],
-                np.int32,
-            )
-            # raw-score filter BEFORE the boost (demo.py:138-148 then 161-171)
-            raw_ok = det["scores"] >= float(self.cfg["detection"]["score_thresh"])
-            det["scores"] = det["scores"] + (
-                float(self.cfg["box_fusion"]["clip_sim_coeff"]) * np.asarray(sims) / 100.0
-            ).astype(np.float32)
-            background = np.asarray([c == "" for c in categories])
-            det["scores"] = np.where(
-                background | ~raw_ok, -1e9, det["scores"]
-            ).astype(np.float32)
-            det["category"] = cat_idx
-            self._time("label", t0)
+            with span("label", self.timings):
+                h0, w0 = frame.image.shape[:2]
+                boxes = scale_boxes(
+                    det["pred_boxes"], h0, w0,
+                    scale=float(self.cfg["detection"]["scale_box"]),
+                )
+                categories, _, sims = self.labeler(frame.image, boxes)
+                if self.class_list is None:
+                    self.class_list = list(self.labeler.class_list) + [""]
+                cat_idx = np.asarray(
+                    [self.class_list.index(c) if c in self.class_list else 0 for c in categories],
+                    np.int32,
+                )
+                # raw-score filter BEFORE the boost (demo.py:138-148 then 161-171)
+                raw_ok = det["scores"] >= float(self.cfg["detection"]["score_thresh"])
+                det["scores"] = det["scores"] + (
+                    float(self.cfg["box_fusion"]["clip_sim_coeff"]) * np.asarray(sims) / 100.0
+                ).astype(np.float32)
+                background = np.asarray([c == "" for c in categories])
+                det["scores"] = np.where(
+                    background | ~raw_ok, -1e9, det["scores"]
+                ).astype(np.float32)
+                det["category"] = cat_idx
         # pack into the one-array transfer format (device_step.py).  Padded
         # rows score -1e9 and are dropped by the score filter on the device;
         # their dims are 1.0 so downstream geometry stays benign.
@@ -317,7 +326,7 @@ class DevicePipeline:
             packed[:n, 22] = det["category"][:n]
 
         meta[:] = pack_meta(frame, self.count)
-        self._run_step(device_step.keyframe_step_packed, buf, self.pst, self.step_cfg)
+        self._run_step(device_step.keyframe_step_packed, buf, self.pst, self.step_cfg, self.timings)
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":

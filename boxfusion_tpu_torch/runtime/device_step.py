@@ -37,7 +37,12 @@ decisions:
     lattice pairs) runs as a masked update, and every stage gate is computed
     through -- a skipped body is a ``torch.where`` on what it would write.
 
-``utils/device.py:host_reads`` counts the reads.  No state tensor passed in
+``utils/device.py:host_reads`` counts and times the reads, each named by its
+site (``step.gate``, ``iou.gated``, ``nms``, ``step.go``, ``correspond``,
+``meta``; ``fuse.done`` in the optimizer).  Given a ``timings`` dict, the
+step adds the host-clock seconds of its loops to it (``step.nms``,
+``step.correspond``, ``step.fuse``; ``utils/profiling.span``, a
+``boxfusion.`` span each under a profiler).  No state tensor passed in
 is written: each stage clones what it updates.  Row indices that come from
 the device (argmax picks) are kept as 1-element index tensors, because
 indexing with a 0-d tensor is itself a host read.
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,6 +65,7 @@ from boxfusion_tpu_torch.geometry.projection import (
 )
 from boxfusion_tpu_torch.runtime.device_state import PAD_ID, DeviceState
 from boxfusion_tpu_torch.utils.device import host_reads
+from boxfusion_tpu_torch.utils.profiling import span
 
 _NEG = -1e30
 
@@ -267,7 +274,7 @@ def _nms_greedy(state: DeviceState, cfg: StepConfig):
     trunc_acc = torch.zeros((), dtype=torch.int32, device=state.device)
     scores, iou = state.scores, state.iou
 
-    more = host_reads.read(remaining.any())
+    more = host_reads.read(remaining.any(), "nms")
     while more:
         i = _argmax_score_desc(scores, remaining)
         keep[i] = True
@@ -281,7 +288,7 @@ def _nms_greedy(state: DeviceState, cfg: StepConfig):
         valid_num[i] = valid_num[i] + any_supp.to(valid_num.dtype)
         success[i] = success[i] | any_supp
 
-        n_records, more = host_reads.read(torch.stack([n_supp, remaining.any().to(n_supp.dtype)]))
+        n_records, more = host_reads.read(torch.stack([n_supp, remaining.any().to(n_supp.dtype)]), "nms")
         # process suppressed in score-descending order
         for _ in range(n_records):
             j = _argmax_score_desc(scores, supp)
@@ -482,7 +489,7 @@ def _correspondence(state, keep, success, n_before, proj2d, cfg: StepConfig):
     flist, fcount, fflag = state.flist.clone(), state.fcount.clone(), state.fflag.clone()
     keep, valid_num = keep.clone(), state.valid_num.clone()
     trunc_acc = torch.zeros((), dtype=torch.int32, device=state.device)
-    for _ in range(host_reads.read(todo.sum())):
+    for _ in range(host_reads.read(todo.sum(), "correspond")):
         trunc_acc += _corr_body(
             state, todo, best, new_wins, flist, fcount, fflag, keep, valid_num, cfg, None
         )
@@ -562,11 +569,9 @@ def _gated_iou_rows(corners_q, mask_q, corners_all, mask_all, cfg: StepConfig):
     Q = corners_q.shape[0]
     A = corners_all.shape[0]
     static = cfg.engine == "unrolled"
-    if not static:
-        host_reads.count += 1  # gated_pair_iou reads the gated pairs' count
     pair_idx, vals, n_gated = gated_pair_iou(
         corners_q, mask_q, corners_all, mask_all,
-        cfg.max_gated_pairs, cfg.grid_samples, static_pairs=static,
+        cfg.max_gated_pairs, cfg.grid_samples, static_pairs=static, read_site="iou.gated",
     )
     budget = min(cfg.max_gated_pairs, Q * A)
     truncated = torch.clamp(n_gated - budget, min=0) if static else max(n_gated - budget, 0)
@@ -787,6 +792,7 @@ def _keyframe_step_impl(
     image_hw,
     frame_idx: int,
     cfg: StepConfig,
+    timings: Optional[Dict[str, float]] = None,
 ) -> DeviceState:
     """One keyframe: filters -> append -> NMS -> correspondence -> fusion.
 
@@ -798,6 +804,8 @@ def _keyframe_step_impl(
       K_img / K_depth: (3, 3) intrinsics.
       image_hw: the actual (H, W) and frame_idx: the frame counter, both on
         the host (they come from the frame, not from the device).
+      timings: optional; host-clock seconds of "step.nms", "step.correspond"
+        and "step.fuse" are added to it.
     """
     G = state.capacity
     dev = state.device
@@ -814,7 +822,7 @@ def _keyframe_step_impl(
     if unrolled:
         live = (k_new > 0) & (n_before > 0)
     else:
-        k_host, n_host = host_reads.read(torch.stack([k_new, n_before]))
+        k_host, n_host = host_reads.read(torch.stack([k_new, n_before]), "step.gate")
         if k_host == 0:
             return state
 
@@ -846,39 +854,42 @@ def _keyframe_step_impl(
     if not unrolled and n_host == 0:  # first frame: nothing to associate with
         return state
 
-    if unrolled:
-        state, keep, success = _nms_greedy_unrolled(state, cfg, gate=live)
-    else:
-        state, keep, success = _nms_greedy(state, cfg)
-
-    # 2D projections of the pre-NMS global set for correspondence
-    proj2d = project_boxes_to_2d(corners_all, K_depth, pose, H, W)
-    any_new_kept = (keep & is_new).any()
-
-    # The reference runs correspondence, the stale drop and fusion only when
-    # a new box survived NMS (demo.py:270-298 `if len(cur_keep_idx) > 0`).
-    if unrolled:
-        any_new_kept = any_new_kept & live
-        kmax = det["scores"].shape[0]
-        state, keep = _correspondence_unrolled(state, keep, success, n_before, proj2d, cfg, kmax)
-        go = True
-    else:
-        go = host_reads.read(any_new_kept)
-        if go:
-            state, keep = _correspondence(state, keep, success, n_before, proj2d, cfg)
-    state = _compact(state, keep)
-
-    if cfg.check_valid and go:
-        # drop boxes never re-observed within one keyframe gap
-        # (box_manager.py:151-166; gated by box_fusion.check_valid)
-        alive = slot < state.n
-        stale = alive & (state.valid_num == 0) & (state.frame_id < frame_idx - cfg.gap)
+    with span("step.nms", timings):
         if unrolled:
-            stale = stale & any_new_kept
-        state = _compact(state, alive & ~stale)
+            state, keep, success = _nms_greedy_unrolled(state, cfg, gate=live)
+        else:
+            state, keep, success = _nms_greedy(state, cfg)
+
+    with span("step.correspond", timings):
+        # 2D projections of the pre-NMS global set for correspondence
+        proj2d = project_boxes_to_2d(corners_all, K_depth, pose, H, W)
+        any_new_kept = (keep & is_new).any()
+
+        # The reference runs correspondence, the stale drop and fusion only
+        # when a new box survived NMS (demo.py:270-298 `if len(cur_keep_idx) > 0`).
+        if unrolled:
+            any_new_kept = any_new_kept & live
+            kmax = det["scores"].shape[0]
+            state, keep = _correspondence_unrolled(state, keep, success, n_before, proj2d, cfg, kmax)
+            go = True
+        else:
+            go = host_reads.read(any_new_kept, "step.go")
+            if go:
+                state, keep = _correspondence(state, keep, success, n_before, proj2d, cfg)
+        state = _compact(state, keep)
+
+        if cfg.check_valid and go:
+            # drop boxes never re-observed within one keyframe gap
+            # (box_manager.py:151-166; gated by box_fusion.check_valid)
+            alive = slot < state.n
+            stale = alive & (state.valid_num == 0) & (state.frame_id < frame_idx - cfg.gap)
+            if unrolled:
+                stale = stale & any_new_kept
+            state = _compact(state, alive & ~stale)
 
     if cfg.fusion_use and go:
-        state = _fuse_device(state, pst, K_img, H, W, cfg, gate=any_new_kept if unrolled else None)
+        with span("step.fuse", timings):
+            state = _fuse_device(state, pst, K_img, H, W, cfg, gate=any_new_kept if unrolled else None)
     return state
 
 
@@ -921,7 +932,8 @@ def _host_array(x) -> np.ndarray:
     and is normally a host array; a tensor on the card costs one counted read."""
     if isinstance(x, torch.Tensor):
         if x.device.type != "cpu":
-            host_reads.count += 1
+            with host_reads.waiting("meta"):
+                return x.detach().cpu().numpy()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -996,13 +1008,14 @@ def keyframe_step_devdet(
     pst: torch.Tensor,
     cfg: StepConfig = StepConfig(),
     kmax: int = 100,
+    timings: Optional[Dict[str, float]] = None,
 ) -> DeviceState:
     """``keyframe_step`` taking DEVICE-resident detector outputs directly.
 
     The path for the real CuTR pipeline: the detector's top-k tensors never
     leave the device; only the (37,) metadata vector (a host array, built
     from the frame) is uploaded per keyframe.  The rows are padded or
-    truncated to ``kmax``.
+    truncated to ``kmax``.  ``timings``: as in ``_keyframe_step_impl``.
     """
     dev = state.device
     det = pad_detections({k: v.to(dev) for k, v in det.items()}, kmax)
@@ -1011,7 +1024,8 @@ def keyframe_step_devdet(
     pose, K_img, K_depth, image_hw, frame_idx = _split_meta(
         meta_host, torch.from_numpy(meta_host).to(dev)
     )
-    return _keyframe_step_impl(state, det, pst, pose, K_img, K_depth, image_hw, frame_idx, cfg)
+    return _keyframe_step_impl(state, det, pst, pose, K_img, K_depth, image_hw, frame_idx, cfg,
+                               timings)
 
 
 @torch.inference_mode()
@@ -1020,11 +1034,13 @@ def keyframe_step_packed(
     buf,
     pst: torch.Tensor,
     cfg: StepConfig = StepConfig(),
+    timings: Optional[Dict[str, float]] = None,
 ) -> DeviceState:
     """``keyframe_step`` with a ONE-array transfer boundary.
 
     ``buf`` is (K * DET_PACK_WIDTH + META_WIDTH,) float32 on the host: the
     packed detections followed by the metadata vector, uploaded once.
+    ``timings``: as in ``_keyframe_step_impl``.
     """
     dev = state.device
     buf_host = np.ascontiguousarray(_host_array(buf), np.float32)
@@ -1034,4 +1050,5 @@ def keyframe_step_packed(
     pose, K_img, K_depth, image_hw, frame_idx = _split_meta(
         buf_host[kmax * DET_PACK_WIDTH:], buf_dev[kmax * DET_PACK_WIDTH:]
     )
-    return _keyframe_step_impl(state, det, pst, pose, K_img, K_depth, image_hw, frame_idx, cfg)
+    return _keyframe_step_impl(state, det, pst, pose, K_img, K_depth, image_hw, frame_idx, cfg,
+                               timings)

@@ -25,14 +25,14 @@ What differs from the JAX module, and why:
 * The label bucket is chosen on the host.  JAX picks it with ``lax.switch``
   on the device; eager PyTorch must know the crop batch size before it
   launches the tower, so the live count is read back (one counted read,
-  ``utils/device.py:host_reads``) and only the chosen bucket runs.
+  ``utils/device.py:host_reads``, site ``label.live``) and only the chosen
+  bucket runs.
 * The chunk is a loop, not a ``lax.scan``: one host-to-device copy of the
   stacked ``(chunk, L)`` buffer, then the body over its rows in frame order.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -51,6 +51,7 @@ from boxfusion_tpu_torch.runtime.device_step import (
     pad_detections,
 )
 from boxfusion_tpu_torch.utils.device import DeviceLike, host_reads
+from boxfusion_tpu_torch.utils.profiling import span
 
 # pose 16 | K_img 9 | K_depth 9 | image_hw 2 | frame_idx 1  (= device_step
 # META layout, device_step.py:736) | T_gravity 9 | depth_scale 1 | pad 1
@@ -199,7 +200,7 @@ def label_boost_core(
     budget = min(int(label_budget), int(boxes.shape[1]))
     b = budget
     if bucketed:
-        live = host_reads.read(raw_ok.sum(dim=-1).max())
+        live = host_reads.read(raw_ok.sum(dim=-1).max(), "label.live")
         b = next(x for x in label_buckets_for(budget) if x >= min(live, budget))
     if b == 0:
         # no live rows: raw scores stand, every row is background --
@@ -223,7 +224,7 @@ def _detections(out: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]
     return {k: out[k][i].to(torch.float32) for k in _DET_KEEP}
 
 
-def _step(state, det, meta, meta_host, pst, step_cfg, kmax: int):
+def _step(state, det, meta, meta_host, pst, step_cfg, kmax: int, timings=None):
     """pad/truncate to the step's static detection budget, then the step;
     pose and intrinsics from the device meta, (H, W) and the frame counter
     from the host copy of it (no read)."""
@@ -231,7 +232,7 @@ def _step(state, det, meta, meta_host, pst, step_cfg, kmax: int):
     return _keyframe_step_impl(
         state, det, pst, meta[:16].reshape(4, 4), meta[16:25].reshape(3, 3),
         meta[25:34].reshape(3, 3), (float(meta_host[34]), float(meta_host[35])),
-        int(meta_host[36]), step_cfg,
+        int(meta_host[36]), step_cfg, timings,
     )
 
 
@@ -252,32 +253,27 @@ def fused_keyframe(
     path, as the JAX program does.  The CLIP label-budget overflow folds
     into ``state.stats[4]`` here, not into the pipeline's own counter.
     ``timings`` (optional) accumulates host-clock seconds of "detect",
-    "label" and "step".
+    "label" and "step", and the step's own (``_keyframe_step_impl``); each is
+    a ``boxfusion.`` span under a profiler (``utils/profiling.span``).
     """
     h, w, dh, dw, square, ratio = shape_key
-    t0 = time.perf_counter()
-    image_u8, depth, meta = unpack_fused_buffer(buf, h=h, w=w, dh=dh, dw=dw,
-                                                depth_mode=depth_mode)
-    batch = package_frame(image_u8, depth if model.cfg.depth_model else None,
-                          meta[16:25].reshape(3, 3), meta[37:46].reshape(3, 3), square, ratio)
-    det = _detections(model(batch), 0)
-    t1 = time.perf_counter()
+    with span("detect", timings):
+        image_u8, depth, meta = unpack_fused_buffer(buf, h=h, w=w, dh=dh, dw=dw,
+                                                    depth_mode=depth_mode)
+        batch = package_frame(image_u8, depth if model.cfg.depth_model else None,
+                              meta[16:25].reshape(3, 3), meta[37:46].reshape(3, 3), square, ratio)
+        det = _detections(model(batch), 0)
     if labeler is not None:
-        # the step's own score filter is bypassed (DevicePipeline.__init__)
-        (det,), overflow = label_boost_core(
-            labeler, [det], batch.image, [(float(meta_host[34]), float(meta_host[35]))],
-            label_budget=label_budget, scale_box=scale_box, clip_coeff=clip_coeff,
-            raw_score_thresh=raw_score_thresh, bucketed=label_bucketing,
-        )
-        state = dataclasses.replace(state, stats=_with_stat(state.stats, 4, overflow[0]))
-    t2 = time.perf_counter()
-    state = _step(state, det, meta, meta_host, pst, step_cfg, kmax)
-    if timings is not None:
-        for stage, dt in (("detect", t1 - t0), ("label", t2 - t1),
-                          ("step", time.perf_counter() - t2)):
-            if stage != "label" or labeler is not None:
-                timings[stage] = timings.get(stage, 0.0) + dt
-    return state
+        with span("label", timings):
+            # the step's own score filter is bypassed (DevicePipeline.__init__)
+            (det,), overflow = label_boost_core(
+                labeler, [det], batch.image, [(float(meta_host[34]), float(meta_host[35]))],
+                label_budget=label_budget, scale_box=scale_box, clip_coeff=clip_coeff,
+                raw_score_thresh=raw_score_thresh, bucketed=label_bucketing,
+            )
+            state = dataclasses.replace(state, stats=_with_stat(state.stats, 4, overflow[0]))
+    with span("step", timings):
+        return _step(state, det, meta, meta_host, pst, step_cfg, kmax, timings)
 
 
 def upload(buf: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -308,9 +304,10 @@ class FusedDevicePipeline(DevicePipeline):
     per-frame path; the last two drop it: it belongs to the replaced
     timeline).
 
-    ``timings`` holds "detect" (unpack + packaging + forward), "label" and
-    "step", on the host clock; a failure of a keyframe is held back and
-    raised at the next ``process_keyframe`` or ``flush``, as in
+    ``timings`` holds, besides ``DevicePipeline``'s, "upload" (packing the
+    transfer buffer, then the copy's pin and enqueue) and "detect" (unpack +
+    packaging + forward), on the host clock; a failure of a keyframe is held
+    back and raised at the next ``process_keyframe`` or ``flush``, as in
     ``DevicePipeline``.
     """
 
@@ -376,27 +373,27 @@ class FusedDevicePipeline(DevicePipeline):
 
     def _dispatch(self, group) -> None:
         """One upload of the group's stacked buffers, then its keyframes."""
-        bufs = np.stack([b for _, b in group])
-        metas = [fused_meta_host(b) for _, b in group]
-        self._run_step(self._fused_rows, upload(bufs, self.device), metas, group[0][0],
-                       stage=None)
+        with span("upload", self.timings):
+            bufs = np.stack([b for _, b in group])
+            metas = [fused_meta_host(b) for _, b in group]
+            buf_dev = upload(bufs, self.device)
+        self._run_step(self._fused_rows, buf_dev, metas, group[0][0], stage=None)
 
-    @torch.inference_mode()
-    def process_keyframe(self, frame) -> None:
-        self._raise_step_error()
+    def _keyframe(self, frame) -> None:
         if frame.depth is None:
             # depth-less frames (rgb-only capture) take the parent's path;
             # the fused buffer layout assumes a depth plane.  Pending chunked
             # keyframes must run first to keep state order.
             if self._pending:
                 self._flush_pending()
-            return super().process_keyframe(frame)
+            return super()._keyframe(frame)
         depth = frame.depth if self.detector.model.cfg.depth_model else None
         square, ratio = resolve_pad_and_ratio(frame.image, depth, self.detector.buckets)
         h, w = frame.image.shape[:2]
         dh, dw = frame.depth.shape[:2]
         shape_key = (h, w, dh, dw, square, ratio)
-        buf = self._pack_buffer(frame)
+        with span("upload", self.timings):
+            buf = self._pack_buffer(frame)
         if self.chunk == 1:
             self._dispatch([(shape_key, buf)])
             return

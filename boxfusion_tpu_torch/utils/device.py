@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from boxfusion_tpu_torch.utils.profiling import span
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -48,23 +50,45 @@ def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
 
 
 class HostReads:
-    """Count of device-to-host reads that steer control flow.
+    """Count and wait of device-to-host reads that steer control flow.
 
     Eager PyTorch has no on-device loop or branch: a loop that ends early or
     a stage that is skipped needs its predicate on the host, and on a CUDA
     device that read waits for everything enqueued before it.  Every such
     read in the device engine and in the optimizer's early exit goes through
-    ``read``, so a run can say how many it paid for.
+    ``read`` (or ``waiting``, around a call that blocks by itself), named by
+    its site, so a run can say how many it paid for and how long the host
+    waited on them: ``count`` and ``wait_s`` only grow.  Under a profiler
+    each read is a ``boxfusion.read.<site>`` span (``utils/profiling.span``).
     """
 
     def __init__(self):
         self.count = 0
+        self.wait_s = 0.0
 
-    def read(self, value: torch.Tensor):
+    def waiting(self, site: str) -> "_Read":
+        """A span around one blocking read at ``site``, counted and timed."""
+        return _Read(self, site)
+
+    def read(self, value: torch.Tensor, site: str):
         """``value`` on the host: a Python scalar for a 0-d tensor, else a
         list.  One read, whatever its size."""
-        self.count += 1
-        return value.tolist()
+        with _Read(self, site):
+            return value.tolist()
+
+
+class _Read(span):
+    __slots__ = ("reads",)
+
+    def __init__(self, reads: HostReads, site: str):
+        super().__init__("read." + site)
+        self.reads = reads
+
+    def __exit__(self, *exc) -> bool:
+        span.__exit__(self, *exc)
+        self.reads.count += 1
+        self.reads.wait_s += self.seconds
+        return False
 
 
 host_reads = HostReads()

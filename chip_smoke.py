@@ -1034,6 +1034,7 @@ def run_device_oracle(device, engine: str, n_frames=60, n_boxes=6, noise=0.02):
                           device=device)
     pipe.run(seq, export=False)  # first pass: allocator and library warm-up
     pipe.reset()
+    pipe.timings, pipe.host_reads = {}, 0  # totals run on over reset(): this run's alone
     pipe.detector = OracleDetector(seq, noise=noise)
     t0 = time.perf_counter()
     world = pipe.run(seq)
@@ -2666,7 +2667,7 @@ BENCH_BUDGET_S = 1100.0  # a phase's seconds: enough for every secondary figure 
 BENCH_CUTS = dict(n_runs=2, n_frames=200)
 TOOL_FRAMES = 40  # the tools' stream: 10 keyframes at gap 1 (the bench's 400: 100)
 MFU_LIMIT = 1.05
-STAGES = ("detect", "label", "step")  # a fused keyframe's parts (runtime/fused.py:fused_keyframe)
+STAGES = ("upload", "detect", "label", "step")  # a fused keyframe's spans (runtime/fused.py)
 
 
 def bench_phases(device, zero, kernels) -> dict:
@@ -2720,43 +2721,12 @@ def check_bench(recs: dict) -> None:
         raise RuntimeError("bench headline: whole_seq_attention was never launched")
 
 
-class StageSpans:
-    """Puts each fused keyframe's detect (the model's forward), label
-    (label_boost_core) and step (fused._step) in an annotate span of its
-    own, by wrapping the names fused_keyframe calls."""
-
-    def __init__(self, model):
-        self.model = model
-
-    def __enter__(self):
-        from boxfusion_tpu_torch.runtime import fused
-        from boxfusion_tpu_torch.utils.profiling import annotate
-
-        def spanned(name, fn):
-            def call(*args, **kw):
-                with annotate(name):
-                    return fn(*args, **kw)
-            return call
-
-        self.saved = fused.label_boost_core, fused._step
-        fused.label_boost_core = spanned("label", fused.label_boost_core)
-        fused._step = spanned("step", fused._step)
-        self.model.forward = spanned("detect", self.model.forward)
-        return self
-
-    def __exit__(self, *exc):
-        from boxfusion_tpu_torch.runtime import fused
-
-        fused.label_boost_core, fused._step = self.saved
-        del self.model.forward  # back to the class's method
-
-
 def bench_headline_trace(device, zero, kernels) -> tuple:
     """One headline run as the bench's record times it (400 frames at gap
     20, 2048 slots, 128 crops), after its warm-up, under torch.profiler:
     the device's busy share of the run, its milliseconds by the keyframe
-    stage that launched them (StageSpans; "other" is the upload, the unpack
-    and the flush), the host clock's stage seconds, the crops each keyframe
+    stage that launched them (the engine's own ``boxfusion.`` spans; "other"
+    is the flush), the host clock's stage seconds, the crops each keyframe
     sent through the tower (its label bucket) and the top device rows.
     Returns (launches, the whole_seq_attention shapes)."""
     from collections import Counter
@@ -2764,8 +2734,8 @@ def bench_headline_trace(device, zero, kernels) -> tuple:
     from boxfusion_tpu_torch import bench
     from boxfusion_tpu_torch.runtime.detector import CuTRDetector
     from boxfusion_tpu_torch.runtime.fused import FusedDevicePipeline
-    from boxfusion_tpu_torch.utils.profiling import (aggregate, annotate, device_activity, device_ms_by_span,
-                                                     load_trace, trace)
+    from boxfusion_tpu_torch.utils.profiling import (SPAN_PREFIX, aggregate, annotate, device_activity,
+                                                     device_ms_by_span, load_trace, trace)
 
     wl = bench._workload(True)
     gap = wl["gap"]
@@ -2776,10 +2746,11 @@ def bench_headline_trace(device, zero, kernels) -> tuple:
                                capacity=bench.HEADLINE_CAPACITY, device=device)
     bench._warm(pipe, frames[: 2 * gap + 1], gap)
     pipe.reset()
+    pipe.timings, pipe.host_reads = {}, 0  # totals run on over reset(): the traced run's alone
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         zero()
-        with LabelClock(labeler) as clock, AttentionBatches() as att, StageSpans(model):
+        with LabelClock(labeler) as clock, AttentionBatches() as att:
             with trace(tmp, device) as path, annotate("headline"):
                 t_run = time.perf_counter()
                 pipe.run(frames, gap=gap, export=False)
@@ -2790,7 +2761,8 @@ def bench_headline_trace(device, zero, kernels) -> tuple:
         events = load_trace(path)
     n_kf = int(pipe.state.stats[3])
     act = device_activity(events, "headline", n_gaps=3)
-    by_stage = device_ms_by_span(events, STAGES)
+    by_stage = {k.removeprefix(SPAN_PREFIX): v
+                for k, v in device_ms_by_span(events, [SPAN_PREFIX + s for s in STAGES]).items()}
     rec = dict(phase="bench", bench_trace="headline", frames=len(frames), keyframes=n_kf,
                traced_run_s=run_s, frames_per_s_traced=len(frames) / run_s, seconds=time.perf_counter() - t0,
                trace_mb=trace_mb, launches=launches, **act,

@@ -295,6 +295,77 @@ def test_pending_chunk_and_restore_state(model, tmp_path):
     assert_same_world(export_world(pipe.state), export_world(straight.state))
 
 
+def _inside(inner, outer):
+    return (float(outer["ts"]) <= float(inner["ts"])
+            and float(inner["ts"]) + float(inner["dur"]) <= float(outer["ts"]) + float(outer["dur"]))
+
+
+def test_fused_spans_under_a_trace(model, frames, tmp_path):
+    """A labelled fused run under ``trace``: one ``boxfusion.keyframe`` span
+    a keyframe, the upload / detect / label / step spans inside one, the
+    step's loops inside a step span, and one ``boxfusion.read.<site>`` span
+    for each counted host read."""
+    from boxfusion_tpu_torch.utils import profiling
+    from boxfusion_tpu_torch.utils.device import host_reads
+
+    pipe = FusedDevicePipeline(cfg_for(), CuTRDetector(model, device="cpu"), labeler=make_labeler(),
+                               capacity=64, device="cpu")
+    keyframes = frames[:5:2]
+    reads0 = host_reads.count
+    with profiling.trace(str(tmp_path / "tr"), device="cpu") as path:
+        for f in keyframes:
+            pipe.process_keyframe(f)
+            pipe.count += 2
+        pipe.flush()
+    reads = host_reads.count - reads0
+    spans = [e for e in profiling.load_trace(path)
+             if e.get("cat") == "user_annotation" and e["name"].startswith("boxfusion.")]
+    by_name = {}
+    for e in spans:
+        by_name.setdefault(e["name"][len("boxfusion."):], []).append(e)
+    assert len(by_name["keyframe"]) == len(keyframes)
+    for stage in ("upload", "detect", "label", "step"):
+        assert len(by_name[stage]) >= len(keyframes), stage
+        assert all(any(_inside(e, k) for k in by_name["keyframe"]) for e in by_name[stage]), stage
+    for k in by_name["keyframe"]:
+        assert all(any(_inside(e, k) for e in by_name[stage]) for stage in ("upload", "detect", "step"))
+    for stage in ("step.nms", "step.correspond", "step.fuse"):
+        assert by_name[stage] and all(any(_inside(e, s) for s in by_name["step"]) for e in by_name[stage])
+    read_spans = [e for e in spans if e["name"].startswith("boxfusion.read.")]
+    assert reads > 0 and len(read_spans) == reads == pipe.host_reads
+    assert {e["name"] for e in read_spans} >= {"boxfusion.read.step.gate", "boxfusion.read.label.live",
+                                               "boxfusion.read.nms", "boxfusion.read.iou.gated"}
+    assert pipe.timings["host_read_wait"] > 0
+    assert pipe.timings["keyframe"] >= pipe.timings["upload"] + pipe.timings["detect"] + pipe.timings["step"]
+
+
+def test_totals_survive_reset(model, frames):
+    """Two sequences with a reset between them: ``timings`` and
+    ``host_reads`` cover both, while the state and the frame counter start
+    afresh (the second sequence's world is the first's)."""
+    from boxfusion_tpu_torch.runtime.device_state import export_world
+    from boxfusion_tpu_torch.utils.device import host_reads
+
+    pipe = FusedDevicePipeline(cfg_for(), CuTRDetector(model, device="cpu"), capacity=64, device="cpu")
+    worlds, totals = [], []
+    reads0 = host_reads.count
+    for _ in range(2):
+        for f in frames[:3:2]:
+            pipe.process_keyframe(f)
+            pipe.count += 2
+        pipe.flush()
+        worlds.append(export_world(pipe.state))
+        totals.append((dict(pipe.timings), pipe.host_reads))
+        pipe.reset()
+        assert pipe.count == 0 and int(pipe.state.n) == 0 and int(pipe.state.stats[3]) == 0
+        assert (dict(pipe.timings), pipe.host_reads) == totals[-1]
+    (first, reads1), (both, reads2) = totals
+    assert reads1 > 0 and reads2 == 2 * reads1 == host_reads.count - reads0
+    for stage in ("keyframe", "upload", "detect", "step", "step.nms", "host_read_wait"):
+        assert both[stage] > first[stage] > 0, stage
+    assert_same_world(worlds[1], worlds[0])
+
+
 @pytest.mark.parametrize("depth_mode", ["u16", "f32"])
 def test_packed_buffer_round_trip_odd_width(depth_mode):
     """pack (the JAX package's bytes exactly) -> unpack at an odd image and

@@ -44,6 +44,47 @@ def test_stage_timer_matches_jax(monkeypatch):
     assert got[0]["detect"] == dict(total_s=0.0375, calls=3, mean_ms=12.5)
 
 
+def test_span_without_a_profiler_opens_no_record_function(monkeypatch):
+    """With no profiler recording, a span enters no ``record_function`` and
+    still adds its seconds and calls to the dicts it is given."""
+    calls = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: calls.append(name))
+    clock = itertools.count(0.0, 0.25)
+    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+    totals, counts = {}, {}
+    for _ in range(3):
+        with profiling.span("outer", totals, counts):
+            with profiling.span("inner", totals):
+                pass
+    with profiling.span("untallied"):
+        pass
+    assert calls == []
+    assert totals == dict(outer=3 * 0.75, inner=3 * 0.25) and counts == dict(outer=3)
+
+
+def test_spans_and_reads_under_a_trace(tmp_path):
+    """Under ``trace``, a span is a ``boxfusion.<name>`` user annotation
+    inside its parent's, and each host read a ``boxfusion.read.<site>``
+    span, counted and timed."""
+    from boxfusion_tpu_torch.utils.device import HostReads
+
+    reads, totals = HostReads(), {}
+    with profiling.trace(str(tmp_path / "tr"), device="cpu") as path:
+        with profiling.span("outer", totals):
+            with profiling.span("inner", totals):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            assert reads.read(torch.tensor([2, 3]), "gate") == [2, 3]
+            with reads.waiting("nonzero"):
+                torch.nonzero(torch.ones(4))
+    spans = {e["name"]: e for e in profiling.load_trace(path) if e.get("cat") == "user_annotation"}
+    outer = spans["boxfusion.outer"]
+    for name in ("boxfusion.inner", "boxfusion.read.gate", "boxfusion.read.nonzero"):
+        e = spans[name]
+        assert outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"], name
+    assert set(totals) == {"outer", "inner"} and totals["outer"] >= totals["inner"] > 0
+    assert reads.count == 2 and 0 < reads.wait_s < totals["outer"]
+
+
 def _synthetic_trace():
     """A loop span 0..100 us; device work at 10-30, 25-40 (overlapping),
     50-55 (a copy) and 90-120 (past the span's end); host ops around."""
