@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from boxfusion_tpu_torch.models.cutr.model import PIXEL_MEAN, PIXEL_STD, FrameBatch
-from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device
+from boxfusion_tpu_torch.utils.device import DeviceLike, device_constant, resolve_device
 
 # Reference bucket list (preprocessor.py:86, imagelist.py:87-97).
 SQUARE_PAD_BUCKETS = (256, 384, 512, 640, 768, 896, 1024)
@@ -90,8 +90,8 @@ def package_frame(
     """One frame, already on its device -> a batch of one (NHWC, padded)."""
     h, w = image_u8.shape[0], image_u8.shape[1]
     dev = image_u8.device
-    mean = torch.as_tensor(PIXEL_MEAN_U8, device=dev)
-    std = torch.as_tensor(PIXEL_STD_U8, device=dev)
+    mean = device_constant(PIXEL_MEAN_U8, dev)
+    std = device_constant(PIXEL_STD_U8, dev)
     img = (image_u8.to(torch.float32) - mean) / std
     img = F.pad(img, (0, 0, 0, square - w, 0, square - h))
 
@@ -110,7 +110,7 @@ def package_frame(
         image=img[None],
         depth=depth_out,
         K=K[None],
-        image_hw=torch.tensor([[h, w]], dtype=torch.float32, device=dev),
+        image_hw=device_constant([[h, w]], dev),
         depth_params=params_out,
         T_gravity=T_gravity[None],
     )

@@ -27,6 +27,7 @@ from boxfusion_tpu_torch.models.cutr.layers import (
     apply_box_deltas,
     box_xyxy_to_cxcywh,
 )
+from boxfusion_tpu_torch.utils.device import device_constant
 
 
 class ClassPredictor(nn.Module):
@@ -99,7 +100,7 @@ class AbsoluteBox3DPredictor(nn.Module):
 
         proj_xy = pred_boxes_cxcywh[..., :2] + dxy * pred_boxes_cxcywh[..., 2:]
         w, h = clamp_wh
-        hi = torch.tensor([w, h], dtype=proj_xy.dtype, device=proj_xy.device)
+        hi = device_constant((w, h), proj_xy.device, proj_xy.dtype)
         proj_xy = torch.minimum(torch.clamp(proj_xy, min=0.0), hi)
         return dict(proj_xy=proj_xy, z_unscaled=z_unscaled, z_scaled=z_scaled, dims=dims, pose=pose)
 

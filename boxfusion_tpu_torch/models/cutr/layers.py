@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from boxfusion_tpu_torch.utils.device import device_constant
+
 
 def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = x.unbind(-1)
@@ -163,7 +165,7 @@ def apply_box_deltas(
     out = torch.cat([gxy - gwh * 0.5, gxy + gwh * 0.5], dim=-1)
     if clamp_wh is not None:
         w, h = clamp_wh
-        hi = torch.tensor([w, h, w, h], dtype=out.dtype, device=out.device)
+        hi = device_constant((w, h, w, h), out.device, out.dtype)
         out = torch.minimum(torch.clamp(out, min=0.0), hi)
     return out
 
@@ -199,14 +201,15 @@ def torch_bicubic_matrix(in_size: int, out_size: int, a: float = -0.75) -> np.nd
 
 
 @functools.lru_cache(maxsize=None)
-def _bicubic(in_size: int, out_size: int) -> torch.Tensor:
-    """``torch_bicubic_matrix`` as a CPU tensor, computed once per shape.
+def _bicubic(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``torch_bicubic_matrix`` as a tensor on ``device``, made once per
+    shape and device (a copy at each call would wait for the card).
 
     Made outside inference mode whatever the caller's mode: a cached
     inference tensor could never be saved for backward, so a training step
     after an inference pass in the same process would fail."""
     with torch.inference_mode(False):
-        return torch.from_numpy(torch_bicubic_matrix(in_size, out_size))
+        return torch.from_numpy(torch_bicubic_matrix(in_size, out_size)).to(device)
 
 
 def resize_pos_embed(pos: torch.Tensor, grid: int, out_hw: Sequence[int]) -> torch.Tensor:
@@ -218,7 +221,7 @@ def resize_pos_embed(pos: torch.Tensor, grid: int, out_hw: Sequence[int]) -> tor
     h, w = out_hw
     p = pos.reshape(grid, grid, pos.shape[-1])
     if (h, w) != (grid, grid):
-        mh = _bicubic(grid, h).to(pos.device)
-        mw = _bicubic(grid, w).to(pos.device)
+        mh = _bicubic(grid, h, pos.device)
+        mw = _bicubic(grid, w, pos.device)
         p = torch.einsum("hi,ijc,wj->hwc", mh, p, mw)
     return p[None]

@@ -7,6 +7,10 @@ GroupNorm32), MetricQueries + EncoderProposals prompting, the 6-layer
 PromptDecoder with per-layer predictor stacks, and the inference
 postprocess (K^-1 backprojection, T_gravity, per-image top-k).
 
+On a card, inference replays a CUDA graph of the forward, captured once per
+input shape (``CubifyTransformer.forward``): issuing the eager forward's
+stream of small launches costs the host several times the card's work.
+
 Layouts follow the JAX package (NHWC images, xyzlhw boxes, (N, 3, 3)
 rotations); module names follow the original CuTR state dict
 (``backbone.0...``, ``prompting.prompters.1...``, ``decoder.layers.i...``)
@@ -21,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from boxfusion_tpu_torch.models.cutr.decoder import DecoderLayer, TorchMHA
 from boxfusion_tpu_torch.models.cutr.heads import (
@@ -42,9 +47,13 @@ from boxfusion_tpu_torch.models.cutr.layers import (
 from boxfusion_tpu_torch.models.cutr.pos import CameraRayEmbedding
 from boxfusion_tpu_torch.models.cutr.vit import ViT
 from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device, torch_dtype
+from boxfusion_tpu_torch.utils.profiling import _recording, span
 
 PIXEL_MEAN = np.array([123.675, 116.28, 103.53], dtype=np.float32)
 PIXEL_STD = np.array([58.395, 57.12, 57.375], dtype=np.float32)
+
+# input shapes with a captured forward at once; a further shape runs eagerly
+GRAPH_KEYS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,12 +223,87 @@ class Decoder(nn.Module):
         )
 
 
+class _Graphs(dict):
+    """Captured forwards by input key.  A copy of the model starts with none:
+    a graph reads the storage of the tensors it was captured on."""
+
+    def __deepcopy__(self, memo):
+        return _Graphs()
+
+    def __reduce__(self):
+        return (_Graphs, ())
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+class _CapturedForward:
+    """A CUDA graph of one eager forward, and its static inputs and outputs.
+
+    Made as ``torch.cuda.graphs`` asks: one eager forward on a side stream
+    first (it warms cuBLAS and the caching allocator, and makes the
+    forward's constants on the card), then the capture into a private
+    memory pool.  Every capture on a device uses one side stream: cuBLAS
+    keeps a 32 MiB workspace for each stream it has run on.  The graph
+    reads the parameters and buffers where they were at the capture:
+    writes into them in place are followed, other storage is not
+    (``current``).
+    """
+
+    def __init__(self, model: nn.Module, batch: FrameBatch):
+        dev = batch.image.device
+        self.inputs = FrameBatch(**{
+            f.name: None if t is None else t.clone(memory_format=torch.contiguous_format)
+            for f in dataclasses.fields(FrameBatch) for t in (getattr(batch, f.name),)
+        })
+        side = _CAPTURE_STREAMS.get(dev)
+        if side is None:
+            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            model._forward(self.inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            self.outputs = model._forward(self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph.replay()
+        self.held = [(d, n) for m in model.modules() for d in (m._parameters, m._buffers)
+                     for n, t in d.items() if t is not None]
+        self.addresses = self._addresses()
+
+    def _addresses(self) -> list:
+        return [d[n].data_ptr() for d, n in self.held]
+
+    def current(self) -> bool:
+        """Whether the model's parameters and buffers are still the storage
+        the graph reads (not so inside ``torch.func.functional_call``)."""
+        return self._addresses() == self.addresses
+
+    def __call__(self, batch: FrameBatch) -> Dict[str, torch.Tensor]:
+        for f in dataclasses.fields(FrameBatch):
+            src = getattr(batch, f.name)
+            if src is not None:
+                getattr(self.inputs, f.name).copy_(src)
+        self.graph.replay()
+        return self.results()
+
+    def results(self) -> Dict[str, torch.Tensor]:
+        """Fresh copies of the outputs: the next replay overwrites them."""
+        return {k: v.clone() for k, v in self.outputs.items()}
+
+
 class CubifyTransformer(nn.Module):
-    """Full CuTR detector; ``forward`` returns the packaged top-k detections."""
+    """Full CuTR detector; ``forward`` returns the packaged top-k detections.
+
+    ``graph_counts`` counts the forwards by how they ran: "capture",
+    "replay" and "eager" (``forward``).
+    """
 
     def __init__(self, cfg: CuTRConfig = CuTRConfig()):
         super().__init__()
         self.cfg = cfg
+        self._graphs = _Graphs()
+        self.graph_counts: Dict[str, int] = {"capture": 0, "replay": 0, "eager": 0}
         dt = cfg.dtype
         self.backbone = nn.ModuleList([
             ViT(
@@ -252,6 +336,61 @@ class CubifyTransformer(nn.Module):
         self.register_buffer("self_attn_mask", torch.from_numpy(mask), persistent=False)
 
     def forward(self, batch: FrameBatch, train: bool = False) -> Dict[str, torch.Tensor]:
+        """The packaged detections of ``batch`` (``train``: and every decoder
+        layer's predictions).
+
+        Inference on a card (``train`` false, gradients off) replays a CUDA
+        graph of the forward, captured at the first call of each input
+        shape and dtype, up to ``GRAPH_KEYS`` of them: the same kernels, bit
+        for bit, from one launch.  It returns fresh tensors at every call.
+        Every other call runs eagerly, and so does a call under a dispatch
+        mode (``FlopCounterMode`` must see the ops), with parameters other
+        than the graph's (``functional_call``), or one that would capture
+        while a profiler records.  Moving the model (``_apply``) or loading
+        a state dict drops its graphs.
+        """
+        key = self._graph_key(batch, train)
+        graph = self._graphs.get(key) if key is not None else None
+        if graph is not None and graph.current():
+            with span("replay", counts=self.graph_counts):
+                return graph(batch)
+        if (key is None or graph is not None or len(self._graphs) >= GRAPH_KEYS or _recording()
+                or not self._own_parameters()):
+            with span("eager", counts=self.graph_counts):
+                return self._forward(batch, train)
+        with span("capture", counts=self.graph_counts):
+            graph = self._graphs[key] = _CapturedForward(self, batch)
+            return graph.results()
+
+    def _graph_key(self, batch: FrameBatch, train: bool) -> Optional[tuple]:
+        """What fixes a captured forward's shapes, or None where the call
+        must run eagerly: training, gradients on, a model off the card, or
+        a dispatch mode."""
+        image = batch.image
+        if (train or torch.is_grad_enabled() or not image.is_cuda
+                or image.device != self.level_embed.device
+                or _get_current_dispatch_mode() is not None):
+            return None
+        return (torch.is_inference_mode_enabled(), image.device) + tuple(
+            None if t is None else (tuple(t.shape), t.dtype)
+            for t in (image, batch.depth, batch.K, batch.image_hw, batch.depth_params, batch.T_gravity)
+        )
+
+    def _own_parameters(self) -> bool:
+        """False inside ``torch.func.functional_call``, which puts plain
+        tensors in the parameters' place for one call."""
+        return all(isinstance(p, nn.Parameter) for m in self.modules()
+                   for p in m._parameters.values() if p is not None)
+
+    def _apply(self, *args, **kwargs):
+        self._graphs.clear()  # new storage: the graphs would read the old
+        return super()._apply(*args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._graphs.clear()  # ``assign=True`` puts new storage in place
+        return super().load_state_dict(*args, **kwargs)
+
+    def _forward(self, batch: FrameBatch, train: bool = False) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         dt = cfg.dtype
         B, S = batch.image.shape[0], batch.image.shape[1]
@@ -331,10 +470,12 @@ class CubifyTransformer(nn.Module):
             # backproject through K^-1 (985-988) and gravity-align the pose
             # (991-992); float32, TF32 off
             uvz = torch.cat([z * proj_xy, z], dim=-1)
-            xyz = uvz @ torch.linalg.inv(batch.K[b]).T
+            # inv_ex: linalg.inv's kernels without its error check, which
+            # reads the card's status back
+            xyz = uvz @ torch.linalg.inv_ex(batch.K[b]).inverse.T
             pose = torch.einsum("ij,njk->nik", batch.T_gravity[b], pose)
             # WHL -> LHW reorder (971-973): head dims are (w, h, l)
-            boxes3d = torch.cat([xyz, dims[:, [2, 1, 0]]], dim=-1)
+            boxes3d = torch.cat([xyz, dims.flip(-1)], dim=-1)
             outs.append(dict(
                 scores=scores, pred_classes=labels, pred_boxes=boxes,
                 pred_logits=logits[box_idx], boxes3d=boxes3d, R=pose, proj_xy=proj_xy,

@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from boxfusion_tpu_torch.models.cutr.layers import Linear
+from boxfusion_tpu_torch.utils.device import device_constant
 
 
 def ray_directions_at_features(
@@ -57,7 +58,7 @@ def fourier_features(x: torch.Tensor, dim: int, max_freq: float) -> torch.Tensor
     d_in = x.shape[-1]
     num_bands = dim // d_in
     scales = 2.0 ** np.linspace(0.0, np.log2(max_freq), num_bands)
-    scales = torch.as_tensor(scales, dtype=x.dtype, device=x.device)
+    scales = device_constant(scales, x.device, x.dtype)
     xs = x[..., None] * scales * np.pi
     return torch.sin(xs).reshape(*x.shape[:-1], d_in * num_bands)
 

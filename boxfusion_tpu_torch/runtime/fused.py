@@ -306,9 +306,10 @@ class FusedDevicePipeline(DevicePipeline):
 
     ``timings`` holds, besides ``DevicePipeline``'s, "upload" (packing the
     transfer buffer, then the copy's pin and enqueue) and "detect" (unpack +
-    packaging + forward), on the host clock; a failure of a keyframe is held
-    back and raised at the next ``process_keyframe`` or ``flush``, as in
-    ``DevicePipeline``.
+    packaging + forward), on the host clock; ``graph_counts`` says how the
+    forwards ran (a CUDA graph's capture or replay, or eagerly); a failure
+    of a keyframe is held back and raised at the next ``process_keyframe``
+    or ``flush``, as in ``DevicePipeline``.
     """
 
     def __init__(
@@ -335,6 +336,14 @@ class FusedDevicePipeline(DevicePipeline):
         self.class_list = (
             list(labeler.class_list) + [""] if labeler is not None else None
         )
+
+    @property
+    def graph_counts(self) -> Dict[str, int]:
+        """The model's forwards by how they ran, "capture", "replay" and
+        "eager" (``CubifyTransformer.graph_counts``): totals over the
+        model's life, as ``timings`` and ``host_reads`` are over the
+        pipeline's."""
+        return self.detector.model.graph_counts
 
     def _fused_kw(self) -> dict:
         det_cfg = self.cfg["detection"]

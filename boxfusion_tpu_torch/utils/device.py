@@ -7,8 +7,9 @@ run that was meant for the card never silently measures the host.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from boxfusion_tpu_torch.utils.profiling import span
@@ -92,6 +93,30 @@ class _Read(span):
 
 
 host_reads = HostReads()
+
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``torch.as_tensor(values, dtype=dtype, device=device)``, made once per
+    (device, dtype, values) and shared by every later call.
+
+    A copy from pageable host memory synchronises the card's stream, and a
+    CUDA graph cannot capture one, so a constant built at each call costs a
+    wait every call.  The values are rounded to ``dtype`` on the host, as the
+    per-call form rounds them.  The tensor is made outside inference mode (an
+    inference tensor cannot be saved for backward by a later training step);
+    callers must not write to it.
+    """
+    arr = np.asarray(values)
+    key = (device, dtype, arr.dtype.str, arr.shape, arr.tobytes())
+    out = _CONSTANTS.get(key)
+    if out is None:
+        with torch.inference_mode(False):
+            out = torch.as_tensor(arr, dtype=dtype).to(device)
+        _CONSTANTS[key] = out
+    return out
 
 
 def torch_dtype(dtype: Optional[Union[str, torch.dtype]]) -> torch.dtype:
