@@ -5,10 +5,11 @@
     python3 benchmark/control.py --workload <cell> --fit-lift
 
 The control is the plain reference put in the program's place and computed
-one precision below what the configuration states: CuTR and the CLIP tower
-in float8 (e4m3, one scale per tensor; the configuration states bfloat16),
-the keyframe step's products in TF32 (float32 with TF32 off), the PST
-search's boxes and fitness values held in bfloat16 (float32 arithmetic).  It drives the first scan
+one precision below what the configuration states: the detector and the
+labeler's tower in float8 (e4m3, one scale per tensor; the configuration
+states bfloat16), the keyframe step's products in TF32 (float32 with TF32
+off), the PST search's boxes and fitness values held in bfloat16 (float32
+arithmetic).  It drives the first scan
 of the cell's traffic from an empty world, as the engine would, and is
 judged by ``check.judge`` against the float32 reference exactly as a run of
 the program is.  ``--program-seeds`` runs the program itself (``run_cell``
@@ -88,7 +89,7 @@ def main(argv=None) -> int:
     cell = load_cell(args.workload)
     dev = torch.device(args.device)
     if args.fit_lift:
-        lift, live = weights.fit_lift(cell.config, cell.traffic, dev)
+        lift, live = weights.fit_lift(cell.config, cell.families, cell.traffic, dev)
         print(json.dumps(dict(kind="lift", workload=args.workload, config=cell.config["name"], lift=lift,
                               live_rows_per_keyframe=live)), flush=True)
     traffic = dict(cell.traffic, class_bias_lift=weights.lift_for(cell.config, cell.traffic))
@@ -102,11 +103,11 @@ def main(argv=None) -> int:
     for seed in args.control_seeds:
         scans = traffic_mod.make_scans(cell.traffic, seed)
         capture = check.sample_positions(cell.traffic, seed, scans)
-        control = ReferenceEngine(cell.config, traffic, dev, detector_dtype=FP8, tower_dtype=FP8,
-                                  tf32=True, search_dtype=torch.bfloat16)
+        control = ReferenceEngine(cell.config, cell.families, traffic, dev, detector_dtype=FP8,
+                                  tower_dtype=FP8, tf32=True, search_dtype=torch.bfloat16)
         records, exports, searches = control_records(control, scans, capture)
         del control
-        reference = ReferenceEngine(cell.config, traffic, dev)
+        reference = ReferenceEngine(cell.config, cell.families, traffic, dev)
         readings = check.judge(records, exports, scans, reference, capture,
                                check.sample_searches(searches, cell.traffic, seed),
                                check.sample_keyframes(records, cell.traffic, seed))

@@ -49,11 +49,14 @@ class Probes:
     """The spans of detect (the model's forward), label
     (``runtime.fused.label_boost_core``) and step (``runtime.fused._step``);
     each PST search's inputs (``ops.pst_search.pst_search`` as
-    ``fusion.optimizer`` calls it); each ``whole_seq_attention`` call's
-    shape (as the CLIP tower calls it)."""
+    ``fusion.optimizer`` calls it); each attention kernel call's shape, at
+    ``attention_sites``: the ``module.attribute`` names through which the
+    labeler's tower calls ``whole_seq_attention`` (its family's
+    ``ATTENTION_SITES``)."""
 
-    def __init__(self, model):
+    def __init__(self, model, attention_sites):
         self.model = model
+        self.attention_sites = tuple(attention_sites)
         self.searches: List[tuple] = []
         self.attention: List[tuple] = []
         self.found = {}
@@ -78,8 +81,7 @@ class Probes:
             _Patch("boxfusion_tpu_torch.runtime.fused", "label_boost_core", _spanned("bench.label")),
             _Patch("boxfusion_tpu_torch.runtime.fused", "_step", _spanned("bench.step")),
             _Patch("boxfusion_tpu_torch.fusion.optimizer", "pst_search", searched),
-            _Patch("boxfusion_tpu_torch.models.clip.model", "whole_seq_attention", attended),
-        ]
+        ] + [_Patch(*site.rsplit(".", 1), attended) for site in self.attention_sites]
         for p in self.patches:
             p.__enter__()
             self.found[f"{p.module}.{p.name}"] = p.active

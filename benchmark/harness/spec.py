@@ -3,9 +3,34 @@
 A cell names a configuration and a traffic mix.  The configuration's file
 is the one ``BENCHMARK.json`` gives; the traffic mix is
 ``traffic/<traffic>.json``, the cell's correctness limits
-``limits/<workload>.json`` and each per-layer metric's reader
-``metrics/<name>.py``, looked up in the benchmark's folders in order, so
-that a later cell or metric is a new file and no file is edited.
+``limits/<workload>.json``, each per-layer metric's reader
+``metrics/<name>.py`` and the family of each of the configuration's two
+models ``families/<family>.py``, looked up in the benchmark's folders in
+order, so that a later cell, metric or architecture is a new file and no
+file is edited.
+
+A configuration's ``detector`` and ``labeler`` sections each name their
+``family``.  Of a section the harness itself reads only ``family`` and
+``dtype``, and of the labeler's also ``embed_dim`` (the width of the
+features scored against the classes), ``n_classes`` and ``sim_thres``;
+every other key is its family's.  A family module gives, from its section:
+
+* ``program(section, device)``: the port's module on ``device``, computing
+  in the section's ``dtype``, in eval mode;
+* ``reference(section, dtype, device)``: the plain reference's module
+  (``benchmark/reference/models/``) computing in ``dtype``; ``meta`` gives
+  names and shapes;
+* ``flops``: a detector's ``flops(section, pad, depth_ratio)`` of one
+  keyframe, a labeler's ``flops(section, crops)`` of one tower call;
+* a detector's ``table(reference, lift)`` and ``detector(section, model,
+  device)``, the port's detector object around the model;
+* a labeler's ``table(reference)``, ``labeler(section, tower,
+  text_features, device)``, the port's labeler object around the tower;
+  ``crops(section, image, boxes, dtype)``, the reference's crops of
+  ``boxes`` as the tower takes them; ``attention_shapes(section)``, the
+  ``(tokens, head_width)`` pairs of the tower's attention kernel; and
+  ``ATTENTION_SITES``, the ``module.attribute`` names through which the
+  port's tower calls that kernel.
 """
 from __future__ import annotations
 
@@ -13,10 +38,17 @@ import dataclasses
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Callable, Dict, List
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(BENCH_DIR)
+
+
+@dataclasses.dataclass
+class Families:
+    detector: ModuleType
+    labeler: ModuleType
 
 
 @dataclasses.dataclass
@@ -28,6 +60,7 @@ class Cell:
     end_to_end: List[dict]
     per_layer: List[dict]
     readers: Dict[str, Callable]
+    families: Families
 
 
 def _find(dirs: List[str], *parts: str) -> str:
@@ -38,12 +71,30 @@ def _find(dirs: List[str], *parts: str) -> str:
     raise FileNotFoundError(f"{os.path.join(*parts)} in none of {dirs}")
 
 
-def _reader(path: str) -> Callable:
-    name = "bench_metric_" + os.path.splitext(os.path.basename(path))[0].replace(".", "_").replace("-", "_")
+def _module(path: str, prefix: str) -> ModuleType:
+    name = prefix + os.path.splitext(os.path.basename(path))[0].replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_families(config: dict, dirs: List[str] = (BENCH_DIR,)) -> Families:
+    """The family module that each model section of ``config`` names."""
+    dirs = list(dirs)
+    found = {}
+    for role in ("detector", "labeler"):
+        name = config.get(role, {}).get("family")
+        if not name:
+            raise LookupError(f"configuration {config.get('name')!r}: its {role} names no family "
+                              f"(a \"family\" key, found as families/<name>.py in {dirs})")
+        try:
+            path = _find(dirs, "families", name + ".py")
+        except FileNotFoundError:
+            raise LookupError(f"configuration {config.get('name')!r}: {role} family {name!r} not found: "
+                              f"families/{name}.py in none of {dirs}") from None
+        found[role] = _module(path, "bench_family_")
+    return Families(**found)
 
 
 def load_cell(name: str, bench_json: str = os.path.join(REPO, "BENCHMARK.json"),
@@ -57,6 +108,7 @@ def load_cell(name: str, bench_json: str = os.path.join(REPO, "BENCHMARK.json"),
     entry = next(c for c in bench["configs"] if c["name"] == workload["config"])
     with open(os.path.join(os.path.dirname(os.path.abspath(bench_json)), entry["file"])) as f:
         config = json.load(f)
+    families = load_families(config, dirs)
     with open(_find(dirs, "traffic", workload["traffic"] + ".json")) as f:
         traffic = json.load(f)
     with open(_find(dirs, "limits", name + ".json")) as f:
@@ -67,6 +119,7 @@ def load_cell(name: str, bench_json: str = os.path.join(REPO, "BENCHMARK.json"),
 
     end_to_end = [m for m in bench["end_to_end"] if applies(m)]
     per_layer = [m for m in bench["per_layer"] if applies(m)]
-    readers = {m["name"]: _reader(_find(dirs, "metrics", m["name"] + ".py")) for m in per_layer}
+    readers = {m["name"]: _module(_find(dirs, "metrics", m["name"] + ".py"), "bench_metric_").read
+               for m in per_layer}
     return Cell(workload=workload, config=config, traffic=traffic, limits=limits,
-                end_to_end=end_to_end, per_layer=per_layer, readers=readers)
+                end_to_end=end_to_end, per_layer=per_layer, readers=readers, families=families)

@@ -162,12 +162,12 @@ def lift_for(config: dict, traffic: dict) -> float:
     return float(lifts[config["name"]])
 
 
-def fit_lift(config: dict, traffic: dict, device) -> tuple:
+def fit_lift(config: dict, families, traffic: dict, device) -> tuple:
     """The class-bias lift at which the configuration's weights give
     ``traffic["live_target"]`` live rows (raw score at or above the score
     filter) a keyframe on average, over the first
     ``traffic["lift_keyframes"]`` keyframes of the traffic's scan drawn from
-    the weight seed, found with the float32 reference CuTR.  The same for
+    the weight seed, found with the float32 reference detector.  The same for
     every run seed.
 
     Adding the same amount to every class head's bias moves every logit by
@@ -180,7 +180,7 @@ def fit_lift(config: dict, traffic: dict, device) -> tuple:
 
     thresh = float(config["settings"]["detection"]["score_thresh"])
     scan = make_scan(traffic, int(config["weight_seed"]), 0)
-    engine = ReferenceEngine(config, dict(traffic, class_bias_lift=0.0), device, build_tower=False)
+    engine = ReferenceEngine(config, families, dict(traffic, class_bias_lift=0.0), device, build_tower=False)
     cut = math.log(thresh / (1.0 - thresh))
     logits = []
     for i in scan.keyframes[: int(traffic["lift_keyframes"])]:

@@ -1,19 +1,21 @@
 """The plain reference of one configuration: its stages, and an engine of them.
 
 Built from the copies beside this file (plain PyTorch, no kernel of the
-program: attention, fitness and the PST search run their plain forms), with
-weights made by the benchmark from the configuration's ``weight_seed``
-(``benchmark.harness.weights``, which the program under test is handed
-too).  Each stage follows the
+program: attention, fitness and the PST search run their plain forms), the
+detector and the image tower as the configuration's families build them
+(``benchmark/families/``), with weights made by the benchmark from the
+configuration's ``weight_seed`` (``benchmark.harness.weights``, which the
+program under test is handed too).  Each stage follows the
 program's semantics as the benchmark pins them:
 
 * ``detect``: the frame through the transport's uint16 depth, the packaging
-  into the pad bucket and CuTR's forward.  ``rank_from`` makes the decoder
-  take the proposals in another run's order (CuTR's query embeddings follow
-  the rank, so two runs that rank two near-tied proposals apart would
-  otherwise compare different rows).
-* ``similarities``: the CLIP tower's scores of the crops of given boxes,
-  with the background column.
+  into the pad bucket and the detector's forward.  ``rank_from`` makes the
+  decoder take the proposals in another run's order (CuTR's query
+  embeddings follow the rank, so two runs that rank two near-tied proposals
+  apart would otherwise compare different rows).
+* ``similarities``: the image tower's scores (100 x cosine against the
+  class features) of the crops of given boxes, cut and normalised as the
+  labeler family cuts them, with the background column.
 * ``label``: the label stage over a keyframe's detections (raw score filter,
   the label bucket, the boost), as the engine runs it.
 * ``step``: the keyframe step (filters, append, NMS, correspondence, PST
@@ -42,9 +44,7 @@ from benchmark.reference.data.preprocess import (
 )
 from benchmark.reference.fusion.optimizer import PSTOptConfig
 from benchmark.reference.fusion.pst import synthesize_pst
-from benchmark.reference.models.clip.head import _crop_normalize, scale_boxes
-from benchmark.reference.models.clip.model import CLIPConfig, CLIPImageTower
-from benchmark.reference.models.cutr.model import CubifyTransformer, CuTRConfig
+from benchmark.reference.models.clip.head import scale_boxes
 from benchmark.reference.runtime import device_step
 from benchmark.reference.runtime.device_state import init_state
 
@@ -87,27 +87,23 @@ def step_config(settings: dict, labelled: bool) -> device_step.StepConfig:
 class ReferenceEngine:
     """The reference stages of one configuration."""
 
-    def __init__(self, config: dict, traffic: dict, device: torch.device,
+    def __init__(self, config: dict, families, traffic: dict, device: torch.device,
                  detector_dtype: torch.dtype = torch.float32,
                  tower_dtype: torch.dtype = torch.float32, tf32: bool = False, build_tower: bool = True,
                  search_dtype: Optional[torch.dtype] = None):
         from benchmark.harness import weights
 
-        self.config, self.device, self.tf32 = config, device, tf32
+        self.config, self.families, self.device, self.tf32 = config, families, device, tf32
         self.settings = config["settings"]
         det, lab = config["detector"], config["labeler"]
         seed = int(config["weight_seed"])
-        with torch.device(device):
-            self.cutr = CubifyTransformer(CuTRConfig(embed_dim=det["embed_dim"], depth_model=det["depth_model"],
-                                                     dtype=detector_dtype))
-            clip_cfg = CLIPConfig(**{k: lab[k] for k in ("image_size", "patch", "width", "layers", "heads",
-                                                          "embed_dim", "quick_gelu")}, dtype=tower_dtype)
-            self.tower = CLIPImageTower(clip_cfg) if build_tower else None
-        self.cutr = self.cutr.to(device).eval()
-        weights.fill(self.cutr, weights.cutr_table(self.cutr, traffic["class_bias_lift"]), seed, device)
+        self.detector = families.detector.reference(det, detector_dtype, device)
+        weights.fill(self.detector, families.detector.table(self.detector, traffic["class_bias_lift"]), seed,
+                     device)
+        self.tower, self.tower_dtype = None, tower_dtype
         if build_tower:
-            self.tower = self.tower.to(device).eval()
-            weights.fill(self.tower, weights.clip_table(self.tower), seed + 2, device)
+            self.tower = families.labeler.reference(lab, tower_dtype, device)
+            weights.fill(self.tower, families.labeler.table(self.tower), seed + 2, device)
         tf = weights.text_features(lab["n_classes"], lab["embed_dim"], seed, device)
         # the labeler normalises its features on the host, in float32
         tf = tf.cpu().numpy()
@@ -150,11 +146,11 @@ class ReferenceEngine:
 
     @torch.inference_mode()
     def detect(self, frame, rank_from: Optional[torch.Tensor] = None) -> dict:
-        """CuTR's rows for one frame (batch axis dropped) and its encoder
-        logits (``enc_logits``, batch kept)."""
+        """The detector's rows for one frame (batch axis dropped) and its
+        encoder logits (``enc_logits``, batch kept)."""
         with self._precision():
             batch = self.batch(frame)
-            out = self.cutr(batch, rank_from=rank_from)
+            out = self.detector(batch, rank_from=rank_from)
         det = {k: out[k][0].to(torch.float32) for k in _DET_KEYS}
         det["enc_logits"] = out["enc_logits"]
         det["image"] = batch.image[0]
@@ -173,9 +169,9 @@ class ReferenceEngine:
         if boxes.shape[0] == 0:
             return torch.zeros((0, self.n_classes + 1), device=self.device)
         with self._precision():
-            crops = _crop_normalize(self._images(norm_image),
-                                    scale_boxes(boxes.to(torch.float32), hw[0], hw[1], self.scale_box),
-                                    self.tower.cfg.dtype)
+            crops = self.families.labeler.crops(
+                self.config["labeler"], self._images(norm_image),
+                scale_boxes(boxes.to(torch.float32), hw[0], hw[1], self.scale_box), self.tower_dtype)
             feats = self.tower(crops)
             feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
             sims = 100.0 * (feats @ self.text.T)

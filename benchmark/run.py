@@ -84,6 +84,7 @@ class Profiled:
 @dataclasses.dataclass
 class Observation:
     config: dict
+    families: object  # harness.spec.Families
     traffic: dict
     unprofiled: Unprofiled
     profiled: Optional[Profiled]
@@ -106,11 +107,13 @@ def _power_limit() -> Optional[str]:
 
 
 def warm_up(prog, scans, traffic: dict, device) -> None:
-    """Build the kernels, run the tower at each label bucket, then the first
-    keyframes of a scan, a flush and an export."""
+    """Build the kernels (the search's, and the attention kernel at each
+    shape the labeler family names), run the tower at each label bucket,
+    then the first keyframes of a scan, a flush and an export."""
     import numpy as np
     import torch
 
+    from benchmark.harness.system import dtype_of
     from benchmark.harness.window import run_window
     from benchmark.reference.engine import label_buckets_for
     from boxfusion_tpu_torch.runtime.device_state import export_world
@@ -121,11 +124,12 @@ def warm_up(prog, scans, traffic: dict, device) -> None:
         from boxfusion_tpu_torch.ops import attention_kernel, pst_search
 
         lab = prog.config["labeler"]
-        for build in (lambda: pst_search.kernel_info(int(settings["box_fusion"]["pst_size"])),
-                      lambda: attention_kernel.kernel_info((lab["image_size"] // lab["patch"]) ** 2 + 1,
-                                                           lab["width"] // lab["heads"], torch.bfloat16)):
+        kernels = [(pst_search, (int(settings["box_fusion"]["pst_size"]),))]
+        kernels += [(attention_kernel, (tokens, head_width, dtype_of(lab["dtype"])))
+                    for tokens, head_width in prog.families.labeler.attention_shapes(lab)]
+        for module, args in kernels:
             try:
-                build()
+                module.kernel_info(*args)
             except AttributeError:  # built at first use instead, inside the warm-up keyframes
                 pass
     frame = scans[0].frames[0]
@@ -159,7 +163,7 @@ def profile_keyframes(prog, scans, n: int, device) -> Profiled:
     from benchmark.harness.window import run_window
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with Probes(prog.model) as probes:
+    with Probes(prog.model, prog.families.labeler.ATTENTION_SITES) as probes:
         with profile(activities=activities) as prof:
             with torch.profiler.record_function("bench.profiled"):
                 run_window(prog, scans, math.inf, device, keep_records=False, max_keyframes=n)
@@ -200,7 +204,7 @@ def run_cell(cell, seed: int, seconds: float, trace_run: bool, device) -> dict:
     scans = traffic_mod.make_scans(traffic, seed)
     lift = weights.lift_for(config, traffic)
     traffic = dict(traffic, class_bias_lift=lift)
-    prog = build_program(config, traffic, device)
+    prog = build_program(config, cell.families, traffic, device)
     log("built; warming up")
     warm_up(prog, scans, traffic, device)
     power = _power_limit() if on_card else None
@@ -240,7 +244,8 @@ def run_cell(cell, seed: int, seconds: float, trace_run: bool, device) -> dict:
 
     result = dict(correct=False, attempted=win.keyframes, failed=0)
     if trace_run:
-        obs = Observation(config=config, traffic=traffic, unprofiled=unprofiled, profiled=profiled)
+        obs = Observation(config=config, families=cell.families, traffic=traffic, unprofiled=unprofiled,
+                          profiled=profiled)
         metrics = {}
         for m in cell.per_layer:
             value = cell.readers[m["name"]](obs)
@@ -270,7 +275,7 @@ def run_cell(cell, seed: int, seconds: float, trace_run: bool, device) -> dict:
     if on_card:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    engine = ReferenceEngine(config, traffic, device)
+    engine = ReferenceEngine(config, cell.families, traffic, device)
     readings = check.judge(records, exports, scans, engine, capture,
                            check.sample_searches(searches, traffic, seed),
                            check.sample_keyframes(records, traffic, seed))

@@ -20,10 +20,10 @@ def test_the_control_is_not_correct(tmp_path, seed):
     scans = traffic_mod.make_scans(cell.traffic, seed)
     capture = check.sample_positions(cell.traffic, seed, scans)
     traffic = dict(cell.traffic, class_bias_lift=weights.lift_for(cell.config, cell.traffic))
-    control = ReferenceEngine(cell.config, traffic, CPU, detector_dtype=FP8, tower_dtype=FP8, tf32=True,
-                              search_dtype=torch.bfloat16)
+    control = ReferenceEngine(cell.config, cell.families, traffic, CPU, detector_dtype=FP8, tower_dtype=FP8,
+                              tf32=True, search_dtype=torch.bfloat16)
     records, exports, searches = control_records(control, scans, capture)
-    reference = ReferenceEngine(cell.config, traffic, CPU)
+    reference = ReferenceEngine(cell.config, cell.families, traffic, CPU)
     readings = check.judge(records, exports, scans, reference, capture,
                            check.sample_searches(searches, cell.traffic, seed),
                            check.sample_keyframes(records, cell.traffic, seed))
@@ -39,7 +39,7 @@ def test_the_reference_in_the_programs_place_is_correct(tmp_path):
     scans = traffic_mod.make_scans(cell.traffic, seed)
     capture = check.sample_positions(cell.traffic, seed, scans)
     traffic = dict(cell.traffic, class_bias_lift=weights.lift_for(cell.config, cell.traffic))
-    reference = ReferenceEngine(cell.config, traffic, CPU)
+    reference = ReferenceEngine(cell.config, cell.families, traffic, CPU)
     records, exports, searches = control_records(reference, scans, capture)
     readings = check.judge(records, exports, scans, reference, capture,
                            check.sample_searches(searches, cell.traffic, seed),
