@@ -33,7 +33,8 @@
 // Two kernels, one per input type:
 //  * attn_fma_kernel<HD>: float32 inputs, which must not go through TF32 (the
 //    contract is 1e-5): FMA loops from shared memory, 256 threads, thread
-//    (ty, tx) owns query rows 4ty..4ty+3 and strided columns tx + 16j; grid
+//    (ty, tx) owns query rows 4ty..4ty+3 and strided columns tx + 16j (at
+//    hd 72 the last column step is half full: threads tx >= 8 skip it); grid
 //    (ceil(T / 64), heads, B).
 //  * attn_wgmma_kernel<HD>: bfloat16 inputs, both products on wgmma, fed by
 //    a ring of asynchronous copies.  See the note above it.
@@ -110,7 +111,7 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 long long k_sr, long long v_sb, long long v_sr, long long o_sb, long long o_sr,
                 float scale) {
   constexpr int kLd = HD + 4;    // pitch of Q, K, V tiles: 16-byte rows, no bank conflicts
-  constexpr int kCols = HD / 16;  // output columns per thread
+  constexpr int kCols = (HD + 15) / 16;  // output columns per thread, the last one partial at hd 72
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // [64][kLd]; reused to stage the output
   float* Ks = Qs + kBM * kLd;     // [64][kLd]
@@ -218,6 +219,7 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(&Ss[(4 * ty + i) * kLdS + j]);
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
+        if (HD % 16 != 0 && tx + 16 * c >= HD) continue;  // only at hd 72: past the head
         const float v0 = Vs[(j + 0) * kLd + tx + 16 * c];
         const float v1 = Vs[(j + 1) * kLd + tx + 16 * c];
         const float v2 = Vs[(j + 2) * kLd + tx + 16 * c];
@@ -239,7 +241,8 @@ attn_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const float inv = 1.f / l_s[4 * ty + i];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) Qs[(4 * ty + i) * kLd + tx + 16 * c] = o[i][c] * inv;
+    for (int c = 0; c < kCols; ++c)
+      if (HD % 16 == 0 || tx + 16 * c < HD) Qs[(4 * ty + i) * kLd + tx + 16 * c] = o[i][c] * inv;
   }
   __syncthreads();
   constexpr int kChunks = HD / 4;
@@ -278,6 +281,7 @@ cudaError_t dispatch_fma(const void* q, const void* k, const void* v, void* out,
     case 16: return launch_fma<16>(q, k, v, out, B, n_tok, heads, st, scale, stream);
     case 32: return launch_fma<32>(q, k, v, out, B, n_tok, heads, st, scale, stream);
     case 64: return launch_fma<64>(q, k, v, out, B, n_tok, heads, st, scale, stream);
+    case 72: return launch_fma<72>(q, k, v, out, B, n_tok, heads, st, scale, stream);
     case 80: return launch_fma<80>(q, k, v, out, B, n_tok, heads, st, scale, stream);
     case 128: return launch_fma<128>(q, k, v, out, B, n_tok, heads, st, scale, stream);
     default: return cudaErrorInvalidValue;
@@ -319,19 +323,42 @@ cudaError_t dispatch_fma(const void* q, const void* k, const void* v, void* out,
 // needs no padding), and 16-byte cp.async chunks land in it directly.  A key
 // tile with keys past T masks them; its 16-key chunks wholly past T are
 // skipped in the second product.
+//
+// Head width 72 (SigLIP's), which wgmma's 16-channel step does not divide:
+// every tile is laid out 80 channels wide, [10][64][8], and its tenth chunk
+// (channels 72-79) is written with zeros once, when the block starts; no copy
+// writes there, since in device memory those columns are the next head's.
+// S = Q K^T then runs five k-steps, the last over 8 live channels and 8 zeros;
+// O += P V is m64n72k16 (its N needs only a multiple of 8); rows are copied
+// as nine 16-byte chunks (copy_tile takes an odd count).  Every other head
+// width is a multiple of 16 and compiles as before.
 constexpr int kTile = 64;         // query rows per wgmma tile and keys per ring slot
 constexpr int kWgThreads = 128;   // one warpgroup
 constexpr int kWgs = 2;           // warpgroups a block: each its own query tile, K and V shared
 
-// Rows [row0, row0 + 64) of one head's (T, HD) block -> a shared tile
-// [HD / 8][64][8], by cp.async; rows at or past row_end become zeros.  Two
-// neighbouring threads copy the two halves of one 32-byte sector of a row.
+// channels of a shared tile: the head width rounded up to wgmma's k16 step
+__host__ __device__ constexpr int padded_width(int hd) { return (hd + 15) / 16 * 16; }
+
+// Rows [row0, row0 + 64) of one head's (T, HD) block -> channels [0, HD) of
+// a shared tile [padded_width(HD) / 8][64][8], by cp.async; rows at or past
+// row_end become zeros.  Two neighbouring threads copy the two halves of one
+// 32-byte sector of a row; of an odd chunk count (hd 72: 9) the last chunk
+// goes one thread a row.
 template <int HD>
 __device__ __forceinline__ void copy_tile(const __nv_bfloat16* __restrict__ src, long long row_stride,
                                           int row0, int row_end, __nv_bfloat16* dst) {
-  constexpr int kChunks = HD / 8;  // even for every head width
+  constexpr int kChunks = HD / 8;
+  constexpr int kPaired = kChunks & ~1;  // chunks copied in pairs
   for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kWgs * kWgThreads) {
-    const int p = idx >> 1, r = p % kTile, c = 2 * (p / kTile) + (idx & 1);
+    int r, c;
+    if (kPaired == kChunks || idx < kTile * kPaired) {
+      const int p = idx >> 1;
+      r = p % kTile;
+      c = 2 * (p / kTile) + (idx & 1);
+    } else {
+      r = idx - kTile * kPaired;
+      c = kPaired;
+    }
     const bool live = row0 + r < row_end;
     cp_async16(smem_addr(dst + (c * kTile + r) * 8),
                src + (live ? (long long)(row0 + r) * row_stride + c * 8 : 0), live);
@@ -344,14 +371,14 @@ __device__ __forceinline__ void copy_tile(const __nv_bfloat16* __restrict__ src,
 // wholly past T are left out of the second product.
 template <int HD, bool kPartial>
 __device__ __forceinline__ void pair_body(const __nv_bfloat16* Ks, const __nv_bfloat16* Vs, int n_live,
-                                          uint32_t (&qf)[HD / 16][4], float (&oacc)[HD / 2],
+                                          uint32_t (&qf)[padded_width(HD) / 16][4], float (&oacc)[HD / 2],
                                           float (&m_run)[2], float (&l_run)[2], float scale_log2,
                                           int lane) {
-  constexpr int kKc = HD / 16;
+  constexpr int kKc = padded_width(HD) / 16;
   const int t = lane & 3;
   const int live16 = kPartial ? (n_live + 15) >> 4 : kTile / 16;
 
-  // S = Q K^T: K is the K-major B operand, [HD / 8][64 keys][8]: core
+  // S = Q K^T: K is the K-major B operand, [padded_width / 8][64 keys][8]: core
   // matrices 16 bytes apart along the keys (8 of them = 128 bytes, the stride
   // offset), 1024 bytes apart along the channels (the leading offset)
   float sacc[kTile / 2];
@@ -441,9 +468,11 @@ attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   int n_qtiles, int n_groups, int stages, long long q_sb, long long q_sr, long long k_sb,
                   long long k_sr, long long v_sb, long long v_sr, long long o_sb, long long o_sr,
                   float scale_log2) {
-  constexpr int kKc = HD / 16;
+  static_assert(HD % 8 == 0, "rows are copied in 16-byte chunks");
+  constexpr int kHdP = padded_width(HD);
+  constexpr int kKc = kHdP / 16;
   constexpr int kChunks = HD / 8;
-  constexpr int kTileElems = kTile * HD;  // one [HD / 8][64][8] tile
+  constexpr int kTileElems = kTile * kHdP;  // one [kHdP / 8][64][8] tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Qbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kWgs][tile]
   __nv_bfloat16* ring = Qbuf + 2 * kWgs * kTileElems;                 // [stages][K, V][tile]
@@ -464,6 +493,16 @@ attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     q0 = (int)((long long)qt * n_tok / n_qtiles);
     q1 = (int)((long long)(qt + 1) * n_tok / n_qtiles);
   };
+  if constexpr (kHdP != HD) {
+    // channels [HD, kHdP) of every Q, K and V tile are zeros for the block's
+    // life: S = Q K^T contracts over them and no copy writes there (the first
+    // pair's proxy fence and barrier make them visible to wgmma)
+    constexpr int kPad = (kHdP - HD) / 8;
+    for (int idx = threadIdx.x; idx < (2 * kWgs + 2 * stages) * kPad * kTile; idx += kWgs * kWgThreads) {
+      const int tile = idx / (kPad * kTile), c = kChunks + (idx / kTile) % kPad, row = idx % kTile;
+      *reinterpret_cast<uint4*>(Qbuf + tile * kTileElems + (c * kTile + row) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   // the next pair to load: its index, round, key tile, slot
   int lu = 0, lr = 0, ljt = 0, lslot = 0;
@@ -567,10 +606,11 @@ attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   cp_async_wait(0);
 }
 
-// Shared memory of one block: two Q tiles per warpgroup and `stages` K, V slots.
+// Shared memory of one block: two Q tiles per warpgroup and `stages` K, V
+// slots, each tile padded_width(HD) channels wide.
 template <int HD>
 size_t wgmma_smem_bytes(int stages) {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * kWgs + 2 * stages) * kTile * HD;
+  return sizeof(__nv_bfloat16) * (size_t)(2 * kWgs + 2 * stages) * kTile * padded_width(HD);
 }
 
 // plan = {n_qtiles, n_groups, stages, smem_bytes}, from
@@ -629,6 +669,7 @@ extern "C" int whole_seq_attention_launch(const void* q, const void* k, const vo
     case 16: return (int)launch_wgmma<16>(q, k, v, out, B, T, heads, strides, scale, plan, s);
     case 32: return (int)launch_wgmma<32>(q, k, v, out, B, T, heads, strides, scale, plan, s);
     case 64: return (int)launch_wgmma<64>(q, k, v, out, B, T, heads, strides, scale, plan, s);
+    case 72: return (int)launch_wgmma<72>(q, k, v, out, B, T, heads, strides, scale, plan, s);
     case 80: return (int)launch_wgmma<80>(q, k, v, out, B, T, heads, strides, scale, plan, s);
     case 128: return (int)launch_wgmma<128>(q, k, v, out, B, T, heads, strides, scale, plan, s);
     default: return (int)cudaErrorInvalidValue;
@@ -645,6 +686,7 @@ extern "C" int whole_seq_attention_info(int hd, int dtype, int smem_bytes, int* 
     case 16: return (int)info_at<16>(dtype, smem_bytes, info);
     case 32: return (int)info_at<32>(dtype, smem_bytes, info);
     case 64: return (int)info_at<64>(dtype, smem_bytes, info);
+    case 72: return (int)info_at<72>(dtype, smem_bytes, info);
     case 80: return (int)info_at<80>(dtype, smem_bytes, info);
     case 128: return (int)info_at<128>(dtype, smem_bytes, info);
     default: return (int)cudaErrorInvalidValue;

@@ -11,7 +11,11 @@ loads ViT-H-14), so
   * ``image_tower_from_flax`` / ``text_tower_from_flax`` turn a JAX-package
     parameter tree (a nested dict of arrays) into the towers' state dicts --
     this module's own copy of the mapping, so the port needs nothing of the
-    JAX package.
+    JAX package;
+  * ``load_siglip_image_params`` maps a Hugging Face SigLIP vision state
+    dict (``vision_model.embeddings.patch_embedding``,
+    ``encoder.layers.{i}.self_attn.{q,k,v}_proj``, ``head.probe``, ...) onto
+    ``siglip.py``'s names, q, k and v concatenated into one in-projection.
 
 Layout conventions: Dense kernel (in, out) -> Linear weight (out, in); conv
 kernel HWIO -> (O, I, kh, kw); LayerNorm scale -> weight; Embed embedding ->
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from boxfusion_tpu_torch.models.clip.model import CLIPConfig, CLIPImageTower, CLIPTextTower
+from boxfusion_tpu_torch.models.clip.siglip import SigLIPConfig, SigLIPImageTower
 from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # open_clip vision-tower head counts by width: head_dim is 64 for B/L but
@@ -184,3 +189,81 @@ def text_tower_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     }
     _resblocks_from_flax(sd, p)
     return {k: _tensor(v) for k, v in sd.items()}
+
+
+# ------------------------------------------------------ SigLIP (Hugging Face)
+# SigLIP vision-tower head counts by width: SO400M's 16 heads of 72 (a tower
+# of another width names its heads)
+_SIGLIP_HEADS = {1152: 16}
+_SIGLIP_PREFIX = "vision_model."
+
+
+def siglip_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A Hugging Face SigLIP vision state dict (keys with or without the
+    ``vision_model.`` prefix; other towers' keys ignored) -> the state dict of
+    ``SigLIPImageTower``: ``self_attn.{q,k,v}_proj`` concatenated, in that
+    order, into ``attn.in_proj_weight`` / ``in_proj_bias``; the position
+    embedding's ``nn.Embedding`` weight as the ``positional_embedding``."""
+    src = {k[len(_SIGLIP_PREFIX):] if k.startswith(_SIGLIP_PREFIX) else k: v for k, v in sd.items()}
+    out = {
+        "patch_embedding.weight": src["embeddings.patch_embedding.weight"],
+        "patch_embedding.bias": src["embeddings.patch_embedding.bias"],
+        "positional_embedding": src["embeddings.position_embedding.weight"],
+    }
+    for name in ("weight", "bias"):
+        out[f"post_layernorm.{name}"] = src[f"post_layernorm.{name}"]
+    out["head.probe"] = src["head.probe"]
+    for k in ("in_proj_weight", "in_proj_bias", "out_proj.weight", "out_proj.bias"):
+        out[f"head.attention.{k}"] = src[f"head.attention.{k}"]
+    for k in ("layernorm.weight", "layernorm.bias", "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
+              "mlp.fc2.bias"):
+        out[f"head.{k}"] = src[f"head.{k}"]
+    i = 0
+    while f"encoder.layers.{i}.layer_norm1.weight" in src:
+        a, b = f"encoder.layers.{i}.", f"transformer.resblocks.{i}."
+        for name in ("weight", "bias"):
+            out[b + f"attn.in_proj_{name}"] = torch.cat(
+                [_tensor(src[a + f"self_attn.{x}_proj.{name}"]) for x in "qkv"])
+            out[b + f"attn.out_proj.{name}"] = src[a + f"self_attn.out_proj.{name}"]
+            out[b + f"ln_1.{name}"] = src[a + f"layer_norm1.{name}"]
+            out[b + f"ln_2.{name}"] = src[a + f"layer_norm2.{name}"]
+            out[b + f"mlp.c_fc.{name}"] = src[a + f"mlp.fc1.{name}"]
+            out[b + f"mlp.c_proj.{name}"] = src[a + f"mlp.fc2.{name}"]
+        i += 1
+    return {k: _tensor(v) for k, v in out.items()}
+
+
+def infer_siglip_config(sd: Mapping, **kw) -> SigLIPConfig:
+    """The SigLIPConfig of a port-named SigLIP state dict, from its shapes.
+
+    The crop size is not in the shapes (a 27 x 27 grid of 14-px patches is a
+    378- or a 384-px crop): SigLIPConfig's default where its grid matches,
+    else the grid times the patch.  LayerNorm eps is SigLIP's 1e-6 and the
+    pixel statistics its 0.5; ``kw`` passes these and further SigLIPConfig
+    fields through (``heads``, ``image_size``, ``dtype``, ``attn_impl``)."""
+    width, _, patch, _ = sd["patch_embedding.weight"].shape
+    grid = int(round(sd["positional_embedding"].shape[0] ** 0.5))
+    layers = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("transformer.resblocks."))
+    if "heads" not in kw and int(width) not in _SIGLIP_HEADS:
+        raise ValueError(f"a SigLIP tower {int(width)} wide: pass its heads")
+    default = SigLIPConfig()
+    fields = dict(
+        image_size=default.image_size if default.image_size // patch == grid else grid * patch,
+        patch=int(patch), width=int(width), layers=int(layers),
+        heads=_SIGLIP_HEADS.get(int(width)),
+        mlp_width=int(sd["transformer.resblocks.0.mlp.c_fc.weight"].shape[0]),
+    )
+    fields.update(kw)
+    return SigLIPConfig(**fields)
+
+
+def load_siglip_image_params(source, device: DeviceLike = None,
+                             **kw) -> Tuple[SigLIPImageTower, SigLIPConfig]:
+    """A Hugging Face SigLIP checkpoint (a path ``torch.load`` reads, or a
+    state dict) -> (``SigLIPImageTower`` on ``device`` with its weights,
+    its SigLIPConfig); ``kw`` as ``infer_siglip_config``'s."""
+    sd = siglip_state_dict(_read_state_dict(source) if isinstance(source, str) else source)
+    cfg = infer_siglip_config(sd, **kw)
+    tower = SigLIPImageTower(cfg)
+    tower.load_state_dict(sd, strict=True)
+    return tower.to(resolve_device(device)).eval(), cfg

@@ -5,15 +5,17 @@ reference's per-keyframe labeling path (tools/utils.py:355-494 +
 demo.py:161-171):
 
   * ``scale_boxes`` x1.5 around fixed centers (tools/utils.py:355-381);
-  * crop each detection, resize to 224x224 (zero-size crops -> black,
-    tools/utils.py:395), batch-encode with CLIP;
+  * crop each detection, resize to the tower's crop size (224x224 for
+    CLIP, 384x384 for SigLIP SO400M; zero-size crops -> black,
+    tools/utils.py:395), normalise by the tower's pixel statistics,
+    batch-encode with the image tower;
   * cosine scores ``100 * img @ text.T`` against the precomputed class
     features, with an appended "background" column at ``sim_thres`` so
     low-similarity boxes get the empty label and are dropped
     (tools/utils.py:478-494).
 
 Crop + resize is one batched pass on the device: per box and per axis a
-224 x size interpolation matrix, contracted with the image by two matrix
+crop-size x size interpolation matrix, contracted with the image by two matrix
 products (the construction of ``jax.image.scale_and_translate`` with
 ``method="bilinear", antialias=False``, which is neither ``F.interpolate``
 nor ``F.grid_sample``: triangle-kernel weights at half-pixel centres,
@@ -32,12 +34,11 @@ from boxfusion_tpu_torch.models.clip.model import (
     CLIP_IMAGE_MEAN,
     CLIP_IMAGE_STD,
     CLIPConfig,
-    CLIPImageTower,
-    init_clip_weights,
 )
 from boxfusion_tpu_torch.utils.device import DeviceLike, resolve_device
+from boxfusion_tpu_torch.utils.profiling import span
 
-CROP = 224
+CROP = 224  # open_clip's crop (CLIPConfig's image_size)
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
@@ -58,8 +59,9 @@ def scale_boxes(boxes, H, W, scale: float = 1.2):
     return np.stack([np.clip(x, 0, hi) for x, hi in cols], axis=1)
 
 
-def _interp_matrix(in_size: int, scale: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
-    """(N, 224, in_size) bilinear weights of ``out = scale * in + translation``.
+def _interp_matrix(in_size: int, scale: torch.Tensor, translation: torch.Tensor,
+                   out_size: int = CROP) -> torch.Tensor:
+    """(N, out_size, in_size) bilinear weights of ``out = scale * in + translation``.
 
     Row a of box n holds the weights of output pixel a over the input pixels:
     the triangle kernel around the sample position (half-pixel centres),
@@ -67,7 +69,7 @@ def _interp_matrix(in_size: int, scale: torch.Tensor, translation: torch.Tensor)
     outside the input."""
     dev = scale.device
     inv = 1.0 / scale
-    out_pos = torch.arange(CROP, dtype=torch.float32, device=dev)
+    out_pos = torch.arange(out_size, dtype=torch.float32, device=dev)
     sample = (out_pos[None] + 0.5) * inv[:, None] - translation[:, None] * inv[:, None] - 0.5
     taps = torch.arange(in_size, dtype=torch.float32, device=dev)
     w = torch.clamp(1.0 - (sample[:, :, None] - taps[None, None, :]).abs(), min=0.0)
@@ -77,8 +79,8 @@ def _interp_matrix(in_size: int, scale: torch.Tensor, translation: torch.Tensor)
     return torch.where(inside[:, :, None], w, 0.0)
 
 
-def batched_crop_resize(image: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """Crop + bilinear-resize every box to 224x224 in one batched device pass.
+def batched_crop_resize(image: torch.Tensor, boxes: torch.Tensor, size: int = CROP) -> torch.Tensor:
+    """Crop + bilinear-resize every box to size x size in one batched device pass.
 
     Args:
       image: (H, W, 3) float tensor in [0, 255] (float32, or bfloat16 for a
@@ -87,7 +89,7 @@ def batched_crop_resize(image: torch.Tensor, boxes: torch.Tensor) -> torch.Tenso
         boxes produce black crops (tools/utils.py:395).
 
     Returns:
-      (N, 224, 224, 3) crops in the image's dtype.
+      (N, size, size, 3) crops in the image's dtype.
     """
     H, W, C = image.shape
     boxes = boxes.to(torch.float32)
@@ -95,18 +97,20 @@ def batched_crop_resize(image: torch.Tensor, boxes: torch.Tensor) -> torch.Tenso
     x1, y1, x2, y2 = (torch.floor(boxes[:, i]) for i in range(4))
     w, h = x2 - x1, y2 - y1
     ok = (w > 0) & (h > 0)
-    sw = CROP / torch.clamp(w, min=1.0)
-    sh = CROP / torch.clamp(h, min=1.0)
-    mh = _interp_matrix(H, sh, -y1 * sh).to(image.dtype)  # (N, 224, H)
-    mw = _interp_matrix(W, sw, -x1 * sw).to(image.dtype)  # (N, 224, W)
+    sw = size / torch.clamp(w, min=1.0)
+    sh = size / torch.clamp(h, min=1.0)
+    mh = _interp_matrix(H, sh, -y1 * sh, size).to(image.dtype)  # (N, size, H)
+    mw = _interp_matrix(W, sw, -x1 * sw, size).to(image.dtype)  # (N, size, W)
     N = boxes.shape[0]
-    rows = (mh @ image.reshape(H, W * C)).reshape(N, CROP, W, C)    # rows resized
+    rows = (mh @ image.reshape(H, W * C)).reshape(N, size, W, C)    # rows resized
     out = torch.einsum("nbw,nawc->nabc", mw, rows)                  # then columns
     return torch.where(ok[:, None, None, None], out, 0.0)
 
 
-def _crop_normalize(image: torch.Tensor, boxes: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Crop + resize + CLIP-normalize in the tower's compute dtype.
+def _crop_normalize(image: torch.Tensor, boxes: torch.Tensor, dtype: torch.dtype, size: int = CROP,
+                    mean: np.ndarray = CLIP_IMAGE_MEAN, std: np.ndarray = CLIP_IMAGE_STD) -> torch.Tensor:
+    """Crop + resize to size x size + normalize by ``mean`` and ``std`` (of
+    [0, 1] pixels; CLIP's by default) in the tower's compute dtype.
 
     With a bfloat16 tower the image is cast to bfloat16 BEFORE the
     interpolation (the two matrix products then run in bfloat16; the pixel
@@ -114,10 +118,10 @@ def _crop_normalize(image: torch.Tensor, boxes: torch.Tensor, dtype: torch.dtype
     (all CPU parity tests) keep the exact float32 path."""
     if dtype == torch.bfloat16:
         image = image.to(torch.bfloat16)
-    crops = batched_crop_resize(image, boxes)
+    crops = batched_crop_resize(image, boxes, size)
     dt, dev = crops.dtype, crops.device
-    mean = torch.as_tensor(CLIP_IMAGE_MEAN, dtype=dt, device=dev)
-    std = torch.as_tensor(CLIP_IMAGE_STD, dtype=dt, device=dev)
+    mean = torch.as_tensor(mean, dtype=dt, device=dev)
+    std = torch.as_tensor(std, dtype=dt, device=dev)
     return (crops / 255.0 - mean) / std
 
 
@@ -129,7 +133,9 @@ class OpenVocabLabeler:
         text embeddings (normalised here).
       image_params: a state dict of the image tower (``convert.py``), or None
         (then call ``init_random`` or ``set_tower``).
-      cfg: the tower's CLIPConfig.
+      cfg: the tower's CLIPConfig or SigLIPConfig: it builds the tower
+        (``image_tower``) and sets the crops' size (``image_size``) and
+        pixel statistics (``image_mean``, ``image_std``).
       sim_thres: similarity of the appended "background" column.
       max_boxes: most crops in one tower call of ``__call__``.
       device: default "cuda" (raises if there is none).
@@ -140,7 +146,7 @@ class OpenVocabLabeler:
         class_list: List[str],
         text_features: np.ndarray,
         image_params: Optional[Mapping[str, torch.Tensor]] = None,
-        cfg: Optional[CLIPConfig] = None,
+        cfg=None,
         sim_thres: float = 0.0,
         max_boxes: int = 128,
         device: DeviceLike = None,
@@ -165,13 +171,13 @@ class OpenVocabLabeler:
         self.sim_thres = float(sim_thres)
         self.max_boxes = int(max_boxes)
         self.cfg = cfg or CLIPConfig()
-        self.tower: Optional[CLIPImageTower] = None  # built once it has weights
+        self.tower: Optional[torch.nn.Module] = None  # built once it has weights
         if image_params is not None:
-            tower = CLIPImageTower(self.cfg)
+            tower = self.cfg.image_tower()
             tower.load_state_dict(image_params, strict=True)
             self.set_tower(tower)
 
-    def set_tower(self, tower: CLIPImageTower) -> "OpenVocabLabeler":
+    def set_tower(self, tower: torch.nn.Module) -> "OpenVocabLabeler":
         """Use ``tower`` (and its config), e.g. one loaded from a checkpoint."""
         self.tower, self.cfg = tower.to(self.device).eval(), tower.cfg
         return self
@@ -180,12 +186,21 @@ class OpenVocabLabeler:
         """Random weights from a ``torch.Generator`` (the whole compute path
         without real CLIP weights).  The numbers are not the JAX package's for
         the same seed; tests carry weights across with ``convert.py``."""
-        tower = CLIPImageTower(self.cfg)
-        init_clip_weights(tower, torch.Generator().manual_seed(seed))
+        tower = self.cfg.image_tower()
+        tower.init_random(torch.Generator().manual_seed(seed))
         return self.set_tower(tower)
 
+    def _crops(self, image: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        # the package's configs name the crop; a tower handed in through
+        # set_tower may carry a config that names only its dtype (the
+        # benchmark's toy labeler family does): CLIP's crop then
+        c = self.cfg
+        return _crop_normalize(image, boxes, c.dtype, getattr(c, "image_size", CROP),
+                               np.asarray(getattr(c, "image_mean", CLIP_IMAGE_MEAN), np.float32),
+                               np.asarray(getattr(c, "image_std", CLIP_IMAGE_STD), np.float32))
+
     def _encode(self, image: torch.Tensor, boxes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._encode_crops(_crop_normalize(image, boxes, self.cfg.dtype))
+        return self._encode_crops(self._crops(image, boxes))
 
     def _encode_crops(self, crops: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.tower is None:
@@ -247,12 +262,12 @@ class OpenVocabLabeler:
         n, k = scores.shape
         budget = min(int(budget), int(k))
         n_classes = self._tf.shape[0]
-        crops = torch.cat([
-            _crop_normalize(torch.as_tensor(images[i], dtype=f32, device=dev),
-                            scale_boxes(boxes_xyxy[i, :budget], hws[i][0], hws[i][1], float(scale)),
-                            self.cfg.dtype)
-            for i in range(n)
-        ])
+        with span("label.crops"):
+            crops = torch.cat([
+                self._crops(torch.as_tensor(images[i], dtype=f32, device=dev),
+                            scale_boxes(boxes_xyxy[i, :budget], hws[i][0], hws[i][1], float(scale)))
+                for i in range(n)
+            ])
         feats, sims = self._encode_crops(crops)  # sims: (n * budget, C)
         sims = sims.reshape(n, budget, n_classes)
 

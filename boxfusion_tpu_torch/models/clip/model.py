@@ -41,6 +41,9 @@ CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 ATTN_IMPLS = ("auto", "kernel", "xla")
+# a block's GELU: exact (open_clip's ViT-H), quick (OpenAI's ViT-L), or the
+# tanh approximation (SigLIP's gelu_pytorch_tanh)
+GELUS = ("exact", "quick", "tanh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +81,24 @@ class CLIPConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
 
+    @property
+    def gelu(self) -> str:
+        return "quick" if self.quick_gelu else "exact"
+
+    # the labeler's crops: image_size square, normalised by CLIP's statistics
+    # of [0, 1] pixels
+    @property
+    def image_mean(self) -> np.ndarray:
+        return CLIP_IMAGE_MEAN
+
+    @property
+    def image_std(self) -> np.ndarray:
+        return CLIP_IMAGE_STD
+
+    def image_tower(self) -> "CLIPImageTower":
+        """The image tower of this config, its weights not yet set."""
+        return CLIPImageTower(self)
+
     @staticmethod
     def vit_l14() -> "CLIPConfig":
         return CLIPConfig(
@@ -90,8 +111,10 @@ class CLIPConfig:
         return CLIPConfig()
 
 
-def _gelu(x: torch.Tensor, quick: bool) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x) if quick else F.gelu(x)
+def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "quick":
+        return x * torch.sigmoid(1.702 * x)
+    return F.gelu(x, approximate="tanh" if kind == "tanh" else "none")
 
 
 class _Attention(nn.Module):
@@ -105,30 +128,35 @@ class _Attention(nn.Module):
 
 
 class _Mlp(nn.Module):
-    def __init__(self, d: int, dtype: torch.dtype):
+    def __init__(self, d: int, dtype: torch.dtype, hidden: Optional[int] = None):
         super().__init__()
-        self.c_fc = Linear(d, 4 * d, dtype=dtype)
-        self.c_proj = Linear(4 * d, d, dtype=dtype)
+        hidden = 4 * d if hidden is None else hidden
+        self.c_fc = Linear(d, hidden, dtype=dtype)
+        self.c_proj = Linear(hidden, d, dtype=dtype)
 
 
 class ResidualBlock(nn.Module):
-    """Pre-norm transformer block of both towers.
+    """Pre-norm transformer block of both towers (and of SigLIP's, siglip.py).
 
-    ``forward``'s ``attn_impl`` is "kernel" or "xla" ("auto" is resolved by
-    the image tower from its input's device); a block given a mask takes the
-    plain form.
+    ``gelu`` is one of ``GELUS``; it, ``mlp_width`` (default 4 x ``d``) and
+    ``ln_eps`` default to open_clip's block.  ``forward``'s ``attn_impl`` is "kernel" or "xla"
+    ("auto" is resolved by the image tower from its input's device); a block
+    given a mask takes the plain form.
     """
 
-    def __init__(self, d: int, heads: int, quick_gelu: bool = False,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, d: int, heads: int, gelu: str = "exact",
+                 dtype: torch.dtype = torch.float32, mlp_width: Optional[int] = None,
+                 ln_eps: float = 1e-5):
         super().__init__()
+        if gelu not in GELUS:
+            raise ValueError(f"gelu must be one of {GELUS}, got {gelu!r}")
         self.heads = heads
-        self.quick_gelu = quick_gelu
+        self.gelu = gelu
         self.compute_dtype = dtype
-        self.ln_1 = LayerNorm(d, eps=1e-5, dtype=dtype)
+        self.ln_1 = LayerNorm(d, eps=ln_eps, dtype=dtype)
         self.attn = _Attention(d, dtype)
-        self.ln_2 = LayerNorm(d, eps=1e-5, dtype=dtype)
-        self.mlp = _Mlp(d, dtype)
+        self.ln_2 = LayerNorm(d, eps=ln_eps, dtype=dtype)
+        self.mlp = _Mlp(d, dtype, mlp_width)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 attn_impl: str = "xla") -> torch.Tensor:
@@ -152,15 +180,15 @@ class ResidualBlock(nn.Module):
             attn = torch.softmax(((qh @ kh) + mask).float(), dim=-1).to(v.dtype)
             o = (attn @ vh).transpose(1, 2).reshape(B, N, d)
         x = x + self.attn.out_proj(o)
-        h = _gelu(self.mlp.c_fc(self.ln_2(x)), self.quick_gelu)
+        h = _gelu(self.mlp.c_fc(self.ln_2(x)), self.gelu)
         return x + self.mlp.c_proj(h)
 
 
 class _Transformer(nn.Module):
-    def __init__(self, d: int, layers: int, heads: int, quick_gelu: bool, dtype: torch.dtype):
+    def __init__(self, d: int, layers: int, heads: int, gelu: str, dtype: torch.dtype, **block_kw):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualBlock(d, heads, quick_gelu, dtype=dtype) for _ in range(layers)
+            ResidualBlock(d, heads, gelu, dtype=dtype, **block_kw) for _ in range(layers)
         )
 
 
@@ -177,7 +205,7 @@ class CLIPImageTower(nn.Module):
             torch.empty((c.image_size // c.patch) ** 2 + 1, c.width)
         )
         self.ln_pre = LayerNorm(c.width, eps=1e-5, dtype=dt)
-        self.transformer = _Transformer(c.width, c.layers, c.heads, c.quick_gelu, dt)
+        self.transformer = _Transformer(c.width, c.layers, c.heads, c.gelu, dt)
         self.ln_post = LayerNorm(c.width, eps=1e-5, dtype=dt)
         self.proj = nn.Parameter(torch.empty(c.width, c.embed_dim))
 
@@ -201,6 +229,9 @@ class CLIPImageTower(nn.Module):
         # final projection + the cosine-similarity math downstream stay float32
         return x.float() @ self.proj
 
+    def init_random(self, gen: torch.Generator) -> None:
+        init_clip_weights(self, gen)
+
 
 class CLIPTextTower(nn.Module):
     """open_clip text transformer with causal mask + EOT pooling."""
@@ -211,7 +242,7 @@ class CLIPTextTower(nn.Module):
         c, dt = cfg, cfg.dtype
         self.token_embedding = nn.Embedding(c.vocab_size, c.text_width)
         self.positional_embedding = nn.Parameter(torch.empty(c.context_length, c.text_width))
-        self.transformer = _Transformer(c.text_width, c.text_layers, c.text_heads, c.quick_gelu, dt)
+        self.transformer = _Transformer(c.text_width, c.text_layers, c.text_heads, c.gelu, dt)
         self.ln_final = LayerNorm(c.text_width, eps=1e-5, dtype=dt)
         self.text_projection = nn.Parameter(torch.empty(c.text_width, c.embed_dim))
         L = c.context_length
@@ -256,6 +287,6 @@ def init_clip_weights(tower: nn.Module, gen: torch.Generator) -> None:
         tower.class_embedding.normal_(0.0, 0.02, generator=gen)
         tower.positional_embedding.normal_(0.0, 0.02, generator=gen)
         tower.proj.normal_(0.0, tower.cfg.width ** -0.5, generator=gen)
-    else:
+    elif isinstance(tower, CLIPTextTower):
         tower.positional_embedding.normal_(0.0, 0.01, generator=gen)
         tower.text_projection.normal_(0.0, tower.cfg.text_width ** -0.5, generator=gen)

@@ -34,7 +34,7 @@ import torch
 from boxfusion_tpu_torch.ops import build
 from boxfusion_tpu_torch.utils.device import refuse_autograd
 
-HEAD_DIMS = (16, 32, 64, 80, 128)  # head widths the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 72, 80, 128)  # head widths the kernel is instantiated for
 # the C entry's type codes: float32 runs the FMA kernel (full float32, no
 # TF32), bfloat16 the wgmma kernel (float32 accumulators)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,6 +49,13 @@ SMEM_LIMIT = 232_448
 RESIDENT_BYTES = SMEM_LIMIT // 2 - 1024
 MAX_RESIDENT_TILES = 5  # key tiles a block holds at once (its wait on cp.async groups)
 STAGES = 3              # K, V slots when they stream
+
+
+def padded_width(hd: int) -> int:
+    """Channels of one of the bfloat16 kernel's shared tiles: the head width
+    rounded up to wgmma's 16-channel step (72 -> 80, whose last 8 are zeros
+    in shared memory; every other head width is its own)."""
+    return -(-hd // 16) * 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +78,8 @@ def plan_bf16(T: int, hd: int) -> Plan:
     The T query rows of a (sequence, head) fall into ``ceil(T / 64)`` tiles
     (at T = 257: 51 or 52 rows), so no tile exists for a few tail rows.  If
     the head's K and V tiles (at most 5) fit beside two Q tiles per
-    warpgroup in ``RESIDENT_BYTES`` (T = 257 at hd 64: 112 KiB), one block
+    warpgroup in ``RESIDENT_BYTES`` (T = 257 at hd 64: 112 KiB; a tile is
+    ``padded_width(hd)`` channels wide), one block
     walks all the query tiles and loads K and V once; otherwise each block
     takes two or three tiles (at least half of the rows its rounds could
     hold) and K and V stream through ``STAGES`` slots (fewer if they would
@@ -82,7 +90,7 @@ def plan_bf16(T: int, hd: int) -> Plan:
     n_kt = -(-T // TILE)
 
     def plan(stages, groups):
-        return Plan(n_kt, groups, stages, (2 * WARPGROUPS + 2 * stages) * TILE * hd * 2)
+        return Plan(n_kt, groups, stages, (2 * WARPGROUPS + 2 * stages) * TILE * padded_width(hd) * 2)
 
     resident = plan(max(n_kt, 2), 1)
     if n_kt <= MAX_RESIDENT_TILES and resident.smem_bytes <= RESIDENT_BYTES:

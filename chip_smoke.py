@@ -217,7 +217,9 @@ SEARCH_TOL, ONE_ITER_TOL = 5e-3, 1e-3
 
 # whole_seq_attention cases: name -> (B, T, heads, head width, dtype).  The
 # first is the main path's shape (the CLIP ViT-L/14 label batch) and the one
-# that is timed.
+# that is timed.  Every case hands the kernel the chunk views of one qkv
+# tensor (attention_inputs), so a load past a head's channels reads the next
+# head's (or k's) and shows.
 ATTENTION_CASES = {
     "clip_l14_bf16": (128, 257, 16, 64, "bfloat16"),
     "clip_l14_f32": (128, 257, 16, 64, "float32"),
@@ -230,8 +232,15 @@ ATTENTION_CASES = {
     "tail_65_bf16": (3, 65, 4, 64, "bfloat16"),
     "tail_129_hd128_bf16": (2, 129, 2, 128, "bfloat16"),
     "ragged_bf16": (2, 37, 4, 16, "bfloat16"),
+    # head width 72 (SigLIP SO400M/14@384): the 96-crop label bucket of the
+    # ca1m SigLIP cell, and three crops whose heads 72 wide sit back to back
+    # in the qkv tensor
+    "siglip_so400m_bf16": (96, 729, 16, 72, "bfloat16"),
+    "siglip_chunk_bf16": (3, 729, 16, 72, "bfloat16"),
 }
 MAIN_ATTENTION_CASE = "clip_l14_bf16"
+# cases besides the main one whose kernel_info and times are printed for the record
+RECORDED_ATTENTION_CASES = ("clip_l14_f32", "siglip_so400m_bf16")
 # what the kernels record adds for whole_seq_attention: kernel_info's, and the rate
 KERNEL_INFO_KEYS = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
 ATTENTION_RECORD_KEYS = KERNEL_INFO_KEYS + ("achieved_tb_s",)
@@ -562,7 +571,7 @@ def check_attention(device) -> dict:
         atol, rtol = attention_tolerance(q.dtype)
         rec = dict(phase="kernels", name="whole_seq_attention", case=case, B=B, T=T, heads=heads,
                    head_dim=hd, dtype=dtype, max_abs_err=err, atol=atol, rtol=rtol)
-        if case in ("clip_l14_f32", MAIN_ATTENTION_CASE):
+        if case in RECORDED_ATTENTION_CASES + (MAIN_ATTENTION_CASE,):
             # ptxas's registers, shared memory and occupancy of the launch;
             # the query tiles (items), the blocks launched, and waves of
             # blocks (blocks_per_sm x SMs at a time)
@@ -571,7 +580,7 @@ def check_attention(device) -> dict:
             grid = info.get("n_groups", -(-T // 64)) * heads * B
             rec.update(info, items=items, grid=grid,
                        waves=grid / (n_sm * max(info["blocks_per_sm"], 1)))
-        if case == "clip_l14_f32":  # the FMA kernel's time at the main shape, for the record
+        if case in RECORDED_ATTENTION_CASES:  # times for the record (the FMA kernel at the main shape; hd 72)
             q4, k4, v4 = (x.reshape(B, T, heads, hd).transpose(1, 2) for x in (q, k, v))
             rec["ms"] = cuda_ms(lambda: whole_seq_attention(q, k, v, heads, scale), reps=20)
             rec["plain_ms"] = cuda_ms(

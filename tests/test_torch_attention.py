@@ -108,8 +108,8 @@ def test_bf16_plan_fills_tiles_and_blocks_at_least_half(hd):
     full; at most one block per tile; each block's live rows are at least
     half of what its rounds (one tile per warpgroup) could hold unless it is
     the only block of its (sequence, head); the Q buffers' reuse rule; shared
-    memory fits a block on Hopper.  At T = 257 no tile or block exists for
-    the 257th row."""
+    memory fits a block on Hopper (a tile is 16-channel aligned: hd 72's is
+    80 wide).  At T = 257 no tile or block exists for the 257th row."""
     for T in (1, 37, 257, 1024, 4096, *range(2, 700, 7)):
         plan = ak.plan_bf16(T, hd)
         n_kt = -(-T // ak.TILE)
@@ -121,7 +121,7 @@ def test_bf16_plan_fills_tiles_and_blocks_at_least_half(hd):
             capacity = -(-tiles // ak.WARPGROUPS) * ak.WARPGROUPS * ak.TILE
             assert plan.n_groups == 1 or 2 * tiles * (T // plan.n_qtiles) >= capacity, (T, hd, tiles)
         assert 2 <= plan.stages <= n_kt + 1
-        assert plan.smem_bytes == (2 * ak.WARPGROUPS + 2 * plan.stages) * ak.TILE * hd * 2 <= ak.SMEM_LIMIT
+        assert plan.smem_bytes == (2 * ak.WARPGROUPS + 2 * plan.stages) * ak.TILE * ak.padded_width(hd) * 2 <= ak.SMEM_LIMIT
     main = ak.plan_bf16(257, 64)
     assert (main.n_qtiles, main.n_groups, main.stages, main.smem_bytes) == (5, 1, 5, 114_688)
 

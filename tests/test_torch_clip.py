@@ -89,7 +89,7 @@ def test_residual_block_matches_flax(masked):
     params = _numpy_params(jblk, *args, seed=4)
     want = np.asarray(jax.jit(jblk.apply)(params, *args))
 
-    blk = ResidualBlock(64, 2, quick_gelu=not masked).eval()
+    blk = ResidualBlock(64, 2, gelu="quick" if not masked else "exact").eval()
     sd = {}
     convert._resblock_from_flax(sd, "b", params["params"])
     blk.load_state_dict({k[2:]: torch.from_numpy(np.array(v)) for k, v in sd.items()}, strict=True)
