@@ -18,6 +18,16 @@ produced for the correctness check: every keyframe's CuTR rows and label
 outputs, and at the positions drawn from the seed the engine's state before
 and after the keyframe (the step never writes into a state it was given, so
 holding the old one costs no copy).
+
+Those records stay on the card until the window ends, so the allocator's
+peak over the window grows with the keyframes the window holds.  With
+``measure_memory`` the window is cut into segments (the ``reset()`` that
+opens a scan, each ``process_keyframe``, the ``flush`` and export that close
+it) and the allocator's peak is read and reset at each boundary, from the
+host and with no synchronise.  A segment's peak less the card bytes that
+only the harness held all through it (records of earlier segments, not
+shared with the engine's live state) is what the program needed; the window's net peak is the largest of these.  Memory the
+program itself keeps from keyframe to keyframe still counts in full.
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ import numpy as np
 import torch
 
 _DET_KEYS = ("scores", "pred_boxes", "boxes3d", "R", "proj_xy", "enc_logits")
+# the caching allocator hands out blocks in multiples of this many bytes
+ALLOC_ROUND = 512
 
 
 @dataclasses.dataclass
@@ -52,6 +64,13 @@ class WindowResult:
     records: List[KeyframeRecord]
     exports: Dict[int, dict]  # scan ordinal -> its exported world
     searches: List[dict]      # each PST search's inputs and results
+    # with ``measure_memory`` (peaks 0 off a card): the allocator's peak over
+    # the window, the largest segment peak net of the bytes only the harness
+    # held, the most such bytes, and the host seconds the accounting took
+    peak_bytes: int = 0
+    peak_net_bytes: int = 0
+    harness_bytes: int = 0
+    accounting_s: float = 0.0
 
 
 class Recorder:
@@ -109,6 +128,76 @@ class Recorder:
         self.search_patch.__exit__()
 
 
+def storages(obj, device_type: str) -> Dict[int, int]:
+    """``data_ptr`` -> bytes of each storage on a ``device_type`` device that
+    the tensors reachable from ``obj`` through dicts, lists, tuples and
+    dataclass fields hold, rounded up as the caching allocator rounds a
+    block."""
+    out = {}
+    stack = [obj]
+    while stack:
+        o = stack.pop()
+        if isinstance(o, torch.Tensor):
+            if o.device.type == device_type:
+                s = o.untyped_storage()
+                out[s.data_ptr()] = -(-s.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            stack.extend(getattr(o, f.name) for f in dataclasses.fields(o))
+    return out
+
+
+class Segments:
+    """The allocator's peak, segment by segment, net of the card bytes that
+    only the harness held all through a segment (see the module's
+    docstring).  ``kept`` grows by each finished segment's records; of it,
+    the storages that the engine's live state held at the segment's start
+    or holds at its end are left out."""
+
+    def __init__(self, pipe, device: torch.device):
+        self.pipe, self.device, self.cuda = pipe, device, device.type == "cuda"
+        self.kept: Dict[int, int] = {}
+        self.kept_total = 0
+        self.peak = self.net = self.harness = 0
+        self.seconds = 0.0
+
+    def open(self) -> None:
+        t0 = time.perf_counter()
+        self.live_before = self._live()
+        if self.cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self.seconds += time.perf_counter() - t0
+
+    def close(self, new=()) -> None:
+        """End a segment; ``new`` is what the harness kept from it."""
+        t0 = time.perf_counter()
+        live = self._live()
+        shared = live.keys() | self.live_before.keys()
+        held = self.kept_total - sum(self.kept.get(p, 0) for p in shared)
+        self.harness = max(self.harness, held)
+        if self.cuda:
+            # ``max_memory_allocated``'s value, without flattening every other statistic
+            peak = int(torch.cuda.memory_stats_as_nested_dict(self.device)["allocated_bytes"]["all"]["peak"])
+            torch.cuda.reset_peak_memory_stats(self.device)
+            self.peak, self.net = max(self.peak, peak), max(self.net, peak - held)
+        for p, n in storages(new, self.device.type).items():
+            if p not in self.kept:
+                self.kept[p] = n
+                self.kept_total += n
+        self.live_before = live
+        self.seconds += time.perf_counter() - t0
+
+    def _live(self) -> Dict[int, int]:
+        """Storages the engine holds between keyframes: its world state's and
+        its other tensors'."""
+        pipe = self.pipe
+        return storages([pipe.state] + [v for v in vars(pipe).values() if isinstance(v, torch.Tensor)],
+                        self.device.type)
+
+
 class _Clock:
     """Completion times of keyframes on the host clock."""
 
@@ -145,11 +234,14 @@ class _Clock:
 
 def run_window(program, scans, seconds: float, device: torch.device,
                capture: Set[Tuple[int, int]] = frozenset(), keep_records: bool = True,
-               max_keyframes: Optional[int] = None) -> WindowResult:
+               max_keyframes: Optional[int] = None, measure_memory: bool = False) -> WindowResult:
     """Stream the cycle of ``scans`` for ``seconds`` (or ``max_keyframes``).
 
     ``capture``: (scan ordinal, keyframe index) positions whose states
-    before and after are kept.  Scan 0's export is kept too."""
+    before and after are kept.  Scan 0's export is kept too.
+    ``measure_memory``: read the allocator's peak segment by segment (it
+    resets the peak, so a caller whose own peak spans this window, as
+    set-up's does, leaves it off)."""
     from boxfusion_tpu_torch.runtime.device_state import export_world
 
     pipe = program.pipe
@@ -157,15 +249,20 @@ def run_window(program, scans, seconds: float, device: torch.device,
     records: List[KeyframeRecord] = []
     exports: Dict[int, dict] = {}
     handoffs: List[float] = []
-    frames = keyframes = completed = 0
+    frames = keyframes = completed = searches_seen = 0
     recorder = Recorder(program) if keep_records else None
+    segments = Segments(pipe, device) if measure_memory else None
     done = False
     with (recorder or _Null()):
         t0 = clock.open()
+        if segments is not None:
+            segments.open()
         ordinal = 0
         while not done:
             scan = scans[ordinal % len(scans)]
             pipe.reset()
+            if segments is not None:
+                segments.close()
             for i in range(scan.n_frames):
                 frame = scan.frames.get(i)
                 if frame is not None:
@@ -183,6 +280,11 @@ def run_window(program, scans, seconds: float, device: torch.device,
                     if recorder is not None:
                         records.append(rec)
                         recorder.current = None
+                    if segments is not None:
+                        new = []
+                        if recorder is not None:
+                            new, searches_seen = [rec, recorder.searches[searches_seen:]], len(recorder.searches)
+                        segments.close(new)
                     keyframes += 1
                 pipe.count += 1
                 frames += 1
@@ -196,13 +298,21 @@ def run_window(program, scans, seconds: float, device: torch.device,
                 if ordinal == 0 and keep_records:
                     exports[0] = world
                 completed += 1
+                if segments is not None:
+                    segments.close()
             ordinal += 1
         pipe.flush()
+        if segments is not None:
+            segments.close()
         t1 = clock.close()
     latencies = [(c - h) * 1e3 for c, h in zip(clock.completions(), handoffs)]
-    return WindowResult(frames=frames, keyframes=keyframes, seconds=t1 - t0, latencies_ms=latencies,
-                        scans_completed=completed, records=records, exports=exports,
-                        searches=recorder.searches if recorder is not None else [])
+    result = WindowResult(frames=frames, keyframes=keyframes, seconds=t1 - t0, latencies_ms=latencies,
+                          scans_completed=completed, records=records, exports=exports,
+                          searches=recorder.searches if recorder is not None else [])
+    if segments is not None:
+        result.peak_bytes, result.peak_net_bytes = segments.peak, segments.net
+        result.harness_bytes, result.accounting_s = segments.harness, segments.seconds
+    return result
 
 
 class _Null:

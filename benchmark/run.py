@@ -12,6 +12,11 @@ and prints one JSON line: ``correct``, ``attempted``, ``failed``,
 ``checks``, each compared number beside its limit (also the last lines on
 standard error).
 
+``peak_memory_gib`` is the allocator's peak over the window net of the card
+bytes that only the harness's records hold (``window.py``), so it does not
+grow with the keyframes a window keeps; ``device.memory_peak_bytes`` is the
+raw peak of set-up and window.
+
 ``--trace 0`` reports the cell's end-to-end metrics.  ``--trace 1`` runs
 the same window unprofiled (host-clock and counter metrics, the MFU), then
 ``profiled_keyframes`` keyframes under ``torch.profiler`` (device metrics),
@@ -213,16 +218,15 @@ def run_cell(cell, seed: int, seconds: float, trace_run: bool, device) -> dict:
 
     capture = check.sample_positions(traffic, seed, scans)
     peak_setup = torch.cuda.max_memory_allocated() if on_card else 0
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
     prog.pipe.timings = {}
     reads0 = host_reads.count
-    win = run_window(prog, scans, seconds, device, capture=capture)
+    win = run_window(prog, scans, seconds, device, capture=capture, measure_memory=True)
     reads = host_reads.count - reads0
     timings = dict(prog.pipe.timings)
-    peak_window = torch.cuda.max_memory_allocated() if on_card else 0
     log(f"window: {win.keyframes} keyframes, {win.frames} frames in {win.seconds:.2f} s, "
         f"{win.scans_completed} scans")
+    log(f"memory: window peak {win.peak_bytes} B, net {win.peak_net_bytes} B, harness-only up to "
+        f"{win.harness_bytes} B; accounting {win.accounting_s / max(win.keyframes, 1) * 1e3:.4f} ms a keyframe")
 
     frame = scans[0].frames[0]
     h, w = frame.image.shape[:2]
@@ -253,11 +257,11 @@ def run_cell(cell, seed: int, seconds: float, trace_run: bool, device) -> dict:
                 metrics[m["name"]] = dict(value=float(value), unit=m["unit"])
     else:
         values = dict(frames_per_s=win.frames / win.seconds, keyframe_ms_p95=p95(win.latencies_ms),
-                      peak_memory_gib=peak_window / 2 ** 30, setup_s=setup_s)
+                      peak_memory_gib=win.peak_net_bytes / 2 ** 30, setup_s=setup_s)
         metrics = {m["name"]: dict(value=float(values[m["name"]]), unit=m["unit"]) for m in cell.end_to_end}
     device_info = dict(platform="gpu" if on_card else "cpu",
                        kind=torch.cuda.get_device_name() if on_card else "cpu",
-                       count=1, memory_peak_bytes=int(max(peak_setup, peak_window)))
+                       count=1, memory_peak_bytes=int(max(peak_setup, win.peak_bytes)))
     if power:
         device_info["power_limit"] = power
     if trace_run:

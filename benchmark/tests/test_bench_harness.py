@@ -7,18 +7,24 @@ a metric reader written into a temporary directory; the harness finds them
 by name beside the benchmark's own files.  The tests check the result
 line's schema with and without the trace, that no module of JAX or of the
 JAX package is loaded, that a run without a card prints nothing, and that
-``correct`` comes out false when the timed path is broken underneath.  The
-test marked ``cuda`` runs a real cell briefly and skips without a card.
+``correct`` comes out false when the timed path is broken underneath, and
+how the window counts the card bytes only the harness holds.  The tests
+marked ``cuda`` run a real cell briefly and the toy cell's window on the
+card, and skip without one.
 """
+import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
 
+from benchmark.harness import window
 from benchmark.harness.spec import BENCH_DIR, REPO
 from benchmark.tests.toycell import toy_cell
 
@@ -158,3 +164,105 @@ def test_a_cell_on_the_card():
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"], line["checks"]
     assert line["device"]["platform"] == "gpu" and line["device"]["count"] == 1
+
+
+@dataclasses.dataclass
+class _State:
+    a: torch.Tensor
+    b: torch.Tensor
+
+
+def _floats(n):
+    return torch.zeros(n, dtype=torch.float32)
+
+
+def _harness_bytes(kept, state):
+    """The bytes only the harness holds once a segment that kept ``kept``
+    is over, the engine's state ``state`` all along."""
+    seg = window.Segments(types.SimpleNamespace(state=state, count=0), CPU)
+    seg.open()
+    seg.close(kept)
+    assert seg.harness == 0  # a segment's own records are the program's while it runs
+    seg.close()
+    return seg.harness
+
+
+def test_harness_bytes_count_views_of_one_storage_once():
+    x = _floats(1024)
+    assert _harness_bytes([x, x[:10], dict(v=x[512:]), (x.view(32, 32),)], None) == 4096
+
+
+def test_harness_bytes_leave_out_what_the_live_state_holds():
+    state = _State(_floats(1024), _floats(256))
+    record = dict(det=state.a[:8], label=_floats(128))
+    assert _harness_bytes([record, state], state) == 512
+
+
+def test_harness_bytes_round_up_as_the_allocator_does():
+    assert _harness_bytes([_floats(1)], None) == 512
+    assert _harness_bytes([_floats(129)], None) == 1024
+    assert _harness_bytes([torch.zeros(512, dtype=torch.uint8)], None) == 512
+
+
+def test_harness_bytes_of_nothing_kept_is_zero():
+    assert _harness_bytes([], _State(_floats(64), _floats(64))) == 0
+    assert _harness_bytes([None, {}, [], _floats(0), _floats(64).to("meta")], None) == 0
+
+
+def test_segments_subtract_only_what_the_harness_alone_held_through_a_segment():
+    pipe = types.SimpleNamespace(state=_State(_floats(1024), _floats(1024)), count=0)
+    seg = window.Segments(pipe, CPU)
+    seg.open()
+    old = pipe.state
+    pipe.state = dataclasses.replace(old, b=_floats(2048))  # a step: one field new, one shared
+    seg.close([dict(before=old, det=_floats(100))])
+    assert seg.harness == 0
+    pipe.state = dataclasses.replace(pipe.state, a=_floats(1024))
+    seg.close()
+    assert seg.harness == 4096 + 512  # old.b and the record; old.a was live when the segment opened
+    seg.close([old.b[:3]])
+    assert seg.harness == 2 * 4096 + 512  # old.a no longer live
+    seg.close()
+    assert seg.harness == 2 * 4096 + 512  # old.b kept again by a later record, counted once
+
+
+@pytest.mark.cuda
+def test_net_peak_on_the_card(tmp_path):
+    """On the toy cell: with records kept the net peak is the peak without
+    them, and a program that keeps 4 MiB more every keyframe shows it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import benchmark.run as run
+    from benchmark.harness import check, traffic as traffic_mod, weights
+    from benchmark.harness.system import build_program
+
+    cell, seed, device = toy_cell(str(tmp_path)), 7, torch.device("cuda")
+    scans = traffic_mod.make_scans(cell.traffic, seed)
+    traffic = dict(cell.traffic, class_bias_lift=weights.lift_for(cell.config, cell.traffic))
+    prog = build_program(cell.config, cell.families, traffic, device)
+    run.warm_up(prog, scans, traffic, device)
+    n = 2 * len(scans[0].keyframes) + 3  # two whole scans and the start of a third
+    capture = check.sample_positions(traffic, seed, scans)
+
+    def window_of(keep_records):
+        return window.run_window(prog, scans, math.inf, device, capture=capture, keep_records=keep_records,
+                                 max_keyframes=n, measure_memory=True)
+
+    plain = window_of(False)
+    assert plain.peak_net_bytes == plain.peak_bytes > 0 and plain.harness_bytes == 0
+    kept = window_of(True)
+    assert kept.keyframes == n and len(kept.records) == n and kept.harness_bytes > 0
+    assert abs(kept.peak_net_bytes - plain.peak_bytes) <= 2 ** 20, (kept.peak_net_bytes, plain.peak_bytes)
+    net = kept.peak_net_bytes
+    del kept
+
+    leak = []
+    process = prog.pipe.process_keyframe
+
+    def leaky(frame):
+        process(frame)
+        leak.append(torch.empty(2 ** 20, dtype=torch.float32, device=device))
+    prog.pipe.process_keyframe = leaky
+    leaked = window_of(True)
+    assert len(leak) == n
+    assert leaked.peak_net_bytes - net >= (n - 1) * 4 * 2 ** 20, (leaked.peak_net_bytes, net)
