@@ -14,8 +14,10 @@ PST search kernel (which runs the same body, csrc/fitness_body.cuh) also get
 -fmad=false, so that every multiply and add rounds on its own as in the plain
 PyTorch twin and in the TPU kernel they replace -- the hull and clip tests
 compare against tolerances of 2e-5 x magnitude, where a fused multiply-add
-moves a boundary decision.  The two attention kernels are held to a
-tolerance, not to bit equality, and keep nvcc's default FMA contraction.
+moves a boundary decision.  So does the step kernel, whose pose tests fuse
+a multiply and an add only where its source says fmaf, as PyTorch's own
+operations do.  The two attention kernels are held to a tolerance, not to
+bit equality, and keep nvcc's default FMA contraction.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ SOURCES: Dict[str, str] = {
     "pst_search_kernel": "pst_search_kernel.cu",
     "attention_kernel": "attention_kernel.cu",
     "tiled_attention_kernel": "tiled_attention_kernel.cu",
+    "step_kernel": "step_kernel.cu",
 }
 
 _COMMON_FLAGS = (
@@ -51,6 +54,7 @@ NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
     "pst_search_kernel": _COMMON_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
     "tiled_attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
+    "step_kernel": _COMMON_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
 }
 
 

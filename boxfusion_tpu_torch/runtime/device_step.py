@@ -27,10 +27,14 @@ decisions:
 
   * ``"loops"`` reads and stops early: one read per keyframe for the stage
     gates (new detections? first frame?), one per gated-IoU refresh (the
-    gated pair count, so that the lattice runs on gated pairs only), one per
-    NMS survivor (its suppressed count and whether any box remains), one for
-    the count of correspondence hits, one for "did a new box survive" and one
-    per PST iteration (fusion/optimizer.py);
+    gated pair count, so that the lattice runs on gated pairs only) and one
+    for "did a new box survive".  The NMS picks with their records and the
+    correspondence hits run on one thread block each (``ops/step_kernel.py``,
+    one launch a stage): on a card they pay no read, neither per NMS survivor
+    nor for the count of correspondence hits.  On the CPU their plain twins
+    read once per NMS survivor (its suppressed count and whether any box
+    remains) and once for the count of hits, and the PST search once per
+    iteration (fusion/optimizer.py);
   * ``"unrolled"`` reads nothing: every budgeted body (``max_nms_sweeps``
     Jacobi sweeps, ``max_nms_records`` record replays, one correspondence
     body per detection row, ``iters`` PST iterations, ``max_gated_pairs``
@@ -38,14 +42,15 @@ decisions:
     through -- a skipped body is a ``torch.where`` on what it would write.
 
 ``utils/device.py:host_reads`` counts and times the reads, each named by its
-site (``step.gate``, ``iou.gated``, ``nms``, ``step.go``, ``correspond``,
-``meta``; ``fuse.done`` in the optimizer).  Given a ``timings`` dict, the
-step adds the host-clock seconds of its loops to it (``step.nms``,
-``step.correspond``, ``step.fuse``; ``utils/profiling.span``, a
-``boxfusion.`` span each under a profiler).  No state tensor passed in
-is written: each stage clones what it updates.  Row indices that come from
-the device (argmax picks) are kept as 1-element index tensors, because
-indexing with a 0-d tensor is itself a host read.
+site (``step.gate``, ``iou.gated``, ``step.go``, ``meta``; ``nms`` and
+``correspond`` in the step kernels' twins, ``fuse.done`` in the
+optimizer's).  Given a ``timings`` dict, the step adds the host-clock
+seconds of its loops to it (``step.nms``, ``step.correspond``,
+``step.fuse``; ``utils/profiling.span``, a ``boxfusion.`` span each under a
+profiler).  No state tensor passed in is written: each stage clones what it
+updates.  Row indices that come from the device (argmax picks) are kept as
+1-element index tensors, because indexing with a 0-d tensor is itself a
+host read.
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ from boxfusion_tpu_torch.geometry.projection import (
     project_boxes_to_2d,
     project_corners_to_image,
 )
+from boxfusion_tpu_torch.ops import step_kernel
 from boxfusion_tpu_torch.runtime.device_state import PAD_ID, DeviceState
 from boxfusion_tpu_torch.utils.device import host_reads
 from boxfusion_tpu_torch.utils.profiling import span
@@ -261,46 +267,20 @@ def _with_stat(stats, index: int, amount):
 def _nms_greedy(state: DeviceState, cfg: StepConfig):
     """Greedy score-ordered NMS over the packed world set.
 
-    One host read per survivor pick: how many boxes it suppressed (the
-    record loop's trip count) and whether any box remains.
+    The overlap graph (``_contested``) is vectorised; the picks and their
+    records run in ``ops/step_kernel.py:nms_greedy``: one launch on a card,
+    and on the CPU its twin, with one host read per survivor pick (how many
+    boxes it suppressed, and whether any box remains).
 
     Returns (state, keep (G,), success (G,))."""
-    G = state.capacity
     _, contested, isolated = _contested(state, cfg)
-    remaining, keep = contested.clone(), isolated.clone()
-    success = torch.zeros(G, dtype=torch.bool, device=state.device)
-    flist, fcount, fflag = state.flist.clone(), state.fcount.clone(), state.fflag.clone()
-    valid_num = state.valid_num.clone()
-    trunc_acc = torch.zeros((), dtype=torch.int32, device=state.device)
-    scores, iou = state.scores, state.iou
-
-    more = host_reads.read(remaining.any(), "nms")
-    while more:
-        i = _argmax_score_desc(scores, remaining)
-        keep[i] = True
-        remaining[i] = False
-
-        supp = remaining & (iou[i][0] > cfg.nms_threshold)
-        remaining &= ~supp
-
-        n_supp = supp.sum()
-        any_supp = n_supp > 0
-        valid_num[i] = valid_num[i] + any_supp.to(valid_num.dtype)
-        success[i] = success[i] | any_supp
-
-        n_records, more = host_reads.read(torch.stack([n_supp, remaining.any().to(n_supp.dtype)]), "nms")
-        # process suppressed in score-descending order
-        for _ in range(n_records):
-            j = _argmax_score_desc(scores, supp)
-            supp[j] = False
-            trunc_acc += _record_core(
-                flist, fcount, fflag, keep, i, j, _center_far(state.xyzlhw, i, j),
-                state.obs_pose, state.init_id, cfg,
-            )
-
+    keep, success, flist, fcount, fflag, valid_num, trunc = step_kernel.nms_greedy(
+        state.scores, state.iou, contested, isolated, state.flist, state.fcount, state.fflag,
+        state.valid_num, state.xyzlhw, state.obs_pose, state.init_id, cfg,
+    )
     state = dataclasses.replace(
         state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num,
-        stats=_with_stat(state.stats, 5, trunc_acc),
+        stats=_with_stat(state.stats, 5, trunc),
     )
     return state, keep, success
 
@@ -454,7 +434,7 @@ def _corr_plan(state, keep, success, n_before, proj2d, cfg: StepConfig):
     return todo, best, new_wins
 
 
-def _corr_body(state, todo, best, new_wins, flist, fcount, fflag, keep, valid_num,
+def _corr_body(todo, best, new_wins, flist, fcount, fflag, keep, valid_num, obs_pose, init_id,
                cfg: StepConfig, gate):
     """One hit, the lowest slot still to do: the lower-scoring of the pair is
     merged into the other (record_corr, box_manager.py:90-129: the record
@@ -462,8 +442,8 @@ def _corr_body(state, todo, best, new_wins, flist, fcount, fflag, keep, valid_nu
     box_manager.py:122-123).  Both outcomes are one body: ``cur`` wins,
     ``other`` is dropped.  Writes its tensor arguments in place; returns the
     truncated-member count."""
-    G = state.capacity
-    slot = torch.arange(G, device=state.device)
+    G = todo.shape[0]
+    slot = torch.arange(G, device=todo.device)
     s = torch.argmin(torch.where(todo, slot, G + 1)).reshape(1)
     todo[s] = False
     b = best[s]
@@ -476,26 +456,24 @@ def _corr_body(state, todo, best, new_wins, flist, fcount, fflag, keep, valid_nu
     else:
         keep[other] = keep[other] & ~gate
         valid_num[cur] = valid_num[cur] + gate.to(valid_num.dtype)
-    no_extra = torch.zeros((), dtype=torch.bool, device=state.device)
+    no_extra = torch.zeros((), dtype=torch.bool, device=todo.device)
     return _record_core(
-        flist, fcount, fflag, keep, cur, other, no_extra,
-        state.obs_pose, state.init_id, cfg, gate=gate,
+        flist, fcount, fflag, keep, cur, other, no_extra, obs_pose, init_id, cfg, gate=gate,
     )
 
 
 def _correspondence(state, keep, success, n_before, proj2d, cfg: StepConfig):
-    """One host read: how many pending boxes hit."""
+    """The plan is vectorised; the hits run in
+    ``ops/step_kernel.py:correspond_hits``: one launch on a card, and on the
+    CPU its twin, with one host read (how many pending boxes hit)."""
     todo, best, new_wins = _corr_plan(state, keep, success, n_before, proj2d, cfg)
-    flist, fcount, fflag = state.flist.clone(), state.fcount.clone(), state.fflag.clone()
-    keep, valid_num = keep.clone(), state.valid_num.clone()
-    trunc_acc = torch.zeros((), dtype=torch.int32, device=state.device)
-    for _ in range(host_reads.read(todo.sum(), "correspond")):
-        trunc_acc += _corr_body(
-            state, todo, best, new_wins, flist, fcount, fflag, keep, valid_num, cfg, None
-        )
+    keep, flist, fcount, fflag, valid_num, trunc = step_kernel.correspond_hits(
+        todo, best, new_wins, keep, state.flist, state.fcount, state.fflag, state.valid_num,
+        state.obs_pose, state.init_id, cfg,
+    )
     state = dataclasses.replace(
         state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num,
-        stats=_with_stat(state.stats, 5, trunc_acc),
+        stats=_with_stat(state.stats, 5, trunc),
     )
     return state, keep
 
@@ -510,7 +488,8 @@ def _correspondence_unrolled(state, keep, success, n_before, proj2d, cfg: StepCo
     trunc_acc = torch.zeros((), dtype=torch.int32, device=state.device)
     for _ in range(min(kmax, state.capacity)):
         trunc_acc += _corr_body(
-            state, todo, best, new_wins, flist, fcount, fflag, keep, valid_num, cfg, todo.any()
+            todo, best, new_wins, flist, fcount, fflag, keep, valid_num, state.obs_pose,
+            state.init_id, cfg, todo.any(),
         )
     state = dataclasses.replace(
         state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num,

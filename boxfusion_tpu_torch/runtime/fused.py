@@ -44,6 +44,7 @@ from boxfusion_tpu_torch.data.preprocess import (
     package_frame,
     resolve_pad_and_ratio,
 )
+from boxfusion_tpu_torch.ops import step_kernel
 from boxfusion_tpu_torch.runtime.device_pipeline import DevicePipeline
 from boxfusion_tpu_torch.runtime.device_step import (
     _keyframe_step_impl,
@@ -344,6 +345,14 @@ class FusedDevicePipeline(DevicePipeline):
         model's life, as ``timings`` and ``host_reads`` are over the
         pipeline's."""
         return self.detector.model.graph_counts
+
+    @property
+    def step_kernel_counts(self) -> Dict[str, int]:
+        """The serial work of the step's NMS and correspondence on this
+        pipeline's device: survivor "picks", suppression "records" and
+        correspondence "hits" (``ops/step_kernel.py:counts``), totals over
+        the process.  One read of the card: never inside a keyframe."""
+        return step_kernel.counts(self.device)
 
     def _fused_kw(self) -> dict:
         det_cfg = self.cfg["detection"]

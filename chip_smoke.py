@@ -28,7 +28,14 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 tiled_attention at CuTR's global blocks (12 x 1024
                 and 12 x 4096, D = 64) and two ragged lengths, float32 and
                 bfloat16, timed in float32 at 12 x 1024 and in bfloat16 at
-                12 x 4096, with registers, shared memory and blocks per SM.
+                12 x 4096, with registers, shared memory and blocks per SM;
+                the step kernels (nms_greedy, correspond_hits) against their
+                twins on a recorded keyframe of a synthetic scan and on
+                random worlds at the cells' shapes (2048 slots, 10 views,
+                16,384 observations), every output equal, timed beside the
+                twins on the card, with registers, spills and shared memory,
+                and the bit check of their float32 pose terms against
+                PyTorch's operations (10^5 pose pairs, card and CPU).
   2b. ablation -- the path that runs tiled_attention
                 (boxfusion_tpu_torch/tools/attention_ablation.py): at the two
                 global-block shapes, milliseconds of tiled_attention, of
@@ -171,8 +178,9 @@ and power limit (as nvidia-smi gives them), then the kernels' record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}
 (every kernel's "launches_by_path": pst_search's and whole_seq_attention's
-the count of each path of phases 3, 7, 8, 9, 11, 12, 13, 14 and 15, the other two's
-phase 11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
+the count of each path of phases 3, 7, 8, 9, 11, 12, 13, 14 and 15, the
+step kernel's the counts of nms_greedy and correspond_hits on the same paths
+(its "launches" their sums), the other two's phase 11's; pst_search's also "eager_kernel_ms", "one_iter_max_abs_err", "registers",
 "local_bytes", "smem_bytes", "threads", "cluster" and "max_active_clusters";
 both attention entries also have "registers", "local_bytes",
 "smem_bytes" and "blocks_per_sm"; whole_seq_attention's "achieved_tb_s";
@@ -214,6 +222,14 @@ SEARCH_ITERS = 20  # box_fusion.iters
 # that tie particle 0, and the search is chaotic after that), and within
 # 1e-3 after one iteration; need_update equal.
 SEARCH_TOL, ONE_ITER_TOL = 5e-3, 1e-3
+
+# The step kernels (ops/step_kernel.py) at the cells' shapes: world slots,
+# view slots, observation-bank rows (benchmark/configs/*.json); the pose
+# pairs of the float32 bit check; the synthetic scan that is recorded
+# (every frame a keyframe, so NMS and correspondence run each keyframe).
+STEP_CAPACITY, STEP_VIEWS, STEP_OBS = 2048, 10, 16384
+POSE_PAIRS = 100_000
+STEP_SCAN = dict(n_frames=40, n_boxes=24, noise=0.05)
 
 # whole_seq_attention cases: name -> (B, T, heads, head width, dtype).  The
 # first is the main path's shape (the CLIP ViT-L/14 label batch) and the one
@@ -738,9 +754,277 @@ def check_tiled_attention(device) -> dict:
     return {**f32, "bf16": {"BH": TILED_CASES[1][0], "N": TILED_CASES[1][1], **{k: bf16[k] for k in keys}}}
 
 
+def random_poses(rng, n, spread, yaw_deg=45.0, tilt_deg=10.0):
+    """n row-major 4x4 camera-to-world poses: a tilt about x within
+    +-tilt_deg, then a yaw within +-yaw_deg; translations within +-spread m."""
+    import numpy as np
+
+    a = np.deg2rad(rng.uniform(-yaw_deg, yaw_deg, n))
+    b = np.deg2rad(rng.uniform(-tilt_deg, tilt_deg, n))
+    ca, sa, cb, sb, z, o = np.cos(a), np.sin(a), np.cos(b), np.sin(b), np.zeros(n), np.ones(n)
+    yaw = np.stack([ca, -sa, z, sa, ca, z, z, z, o], -1).reshape(n, 3, 3)
+    tilt = np.stack([o, z, z, z, cb, -sb, z, sb, cb], -1).reshape(n, 3, 3)
+    p = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    p[:, :3, :3] = yaw @ tilt
+    p[:, :3, 3] = rng.uniform(-spread, spread, (n, 3))
+    return p
+
+
+def manager_scene(device, seed=0, G=64, V=10, M=256, n=None, density=0.3, single_share=0.5,
+                  max_count=None, pose_spread=0.5, nms_threshold=0.1):
+    """``step_kernel.nms_greedy``'s tensor arguments (a dict, on ``device``)
+    for a random world of ``n`` live slots out of G: scores with ties (one
+    decimal), an asymmetric IoU cache (a share ``density`` of the live pairs
+    in [0, 0.4)), fusion lists of one member (a share ``single_share``) or
+    2..``max_count`` sorted observation ids below M, observation poses
+    ``pose_spread`` m and 45 degrees of yaw apart at most (about half the
+    pose tests differ at the config's gaps), box centres within +-0.6 m (the
+    centre-distance escape goes both ways), and ``_contested``'s masks."""
+    import numpy as np
+    import torch
+
+    from boxfusion_tpu_torch.runtime.device_state import PAD_ID
+
+    rng = np.random.RandomState(seed)
+    n = G if n is None else n
+    max_count = V if max_count is None else max_count
+    iou = rng.uniform(0, 0.4, (G, G)).astype(np.float32)
+    iou[rng.rand(G, G) >= density] = 0.0
+    iou[n:], iou[:, n:] = 0.0, 0.0
+    np.fill_diagonal(iou, 0.0)
+    fcount = np.where(rng.rand(G) < single_share, 1, rng.randint(2, max_count + 1, G)).astype(np.int32)
+    flist = np.full((G, V), PAD_ID, np.int32)
+    for g in range(G):
+        flist[g, :fcount[g]] = np.sort(rng.choice(M, fcount[g], replace=False))
+    scene = dict(
+        scores=rng.uniform(0.3, 0.95, G).round(1).astype(np.float32), iou=iou, flist=flist,
+        fcount=fcount, fflag=rng.rand(G) < 0.4, valid_num=rng.randint(0, 4, G).astype(np.float32),
+        xyzlhw=np.concatenate([rng.uniform(-0.6, 0.6, (G, 3)), rng.uniform(0.2, 0.9, (G, 3))],
+                              1).astype(np.float32),
+        obs_pose=random_poses(rng, M, pose_spread), init_id=flist[:, 0].copy())
+    scene = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in scene.items()}
+    live = torch.arange(G, device=device) < n
+    pair_on = (scene["iou"] > nms_threshold) & live[None, :] & live[:, None]
+    scene["contested"] = pair_on.any(1) | pair_on.any(0)
+    scene["isolated"] = live & ~scene["contested"]
+    return scene
+
+
+def corr_scene(device, seed=0, G=64, V=10, M=256, hits=8):
+    """``step_kernel.correspond_hits``' tensor arguments (a dict): the state
+    fields of ``manager_scene``, ``hits`` pending slots in the upper half
+    that hit, each with a best match in the lower half (two may share one)
+    and a coin for who wins, and NMS's keep (most slots kept)."""
+    import numpy as np
+    import torch
+
+    scene = manager_scene(device, seed, G, V, M)
+    rng = np.random.RandomState(seed + 7)
+    todo = np.zeros(G, bool)
+    todo[rng.choice(np.arange(G // 2, G), hits, replace=False)] = True
+    plan = dict(todo=todo, best=rng.randint(0, G // 2, G).astype(np.int64),
+                new_wins=rng.rand(G) < 0.5, keep=rng.rand(G) < 0.8)
+    plan = {k: torch.from_numpy(v).to(device) for k, v in plan.items()}
+    return {**plan, **{k: scene[k] for k in ("flist", "fcount", "fflag", "valid_num", "obs_pose",
+                                              "init_id")}}
+
+
+NMS_ARGS = ("scores", "iou", "contested", "isolated", "flist", "fcount", "fflag", "valid_num",
+            "xyzlhw", "obs_pose", "init_id")
+CORR_ARGS = ("todo", "best", "new_wins", "keep", "flist", "fcount", "fflag", "valid_num",
+             "obs_pose", "init_id")
+
+
+def step_kernel_against_twin(kind: str, scene: dict, cfg) -> dict:
+    """``kind`` ("nms_greedy" or "correspond_hits") on the card's tensors of
+    ``scene`` and its twin on their CPU copies: every output and the tally's
+    growth, each equal or RuntimeError.  Returns the outputs' summary."""
+    import torch
+
+    from boxfusion_tpu_torch.ops import step_kernel
+
+    names = NMS_ARGS if kind == "nms_greedy" else CORR_ARGS
+    outs = (("keep", "success", "flist", "fcount", "fflag", "valid_num", "trunc") if kind == "nms_greedy"
+            else ("keep", "flist", "fcount", "fflag", "valid_num", "trunc"))
+    fn = getattr(step_kernel, kind)
+    card = scene[names[0]].device
+    before = (step_kernel.tally(card).cpu(), step_kernel.tally("cpu").clone(), fn.launches)
+    got = fn(*(scene[k] for k in names), cfg)
+    want = fn(*(scene[k].cpu() for k in names), cfg)
+    torch.cuda.synchronize()
+    grown = (step_kernel.tally(card).cpu() - before[0], step_kernel.tally("cpu") - before[1])
+    if fn.launches != before[2] + 1:
+        raise RuntimeError(f"{kind}: {fn.launches - before[2]} launches for one call")
+    max_abs_err = 0.0
+    for name, g, w in zip(outs, got, want):
+        err = float((g.cpu().double() - w.double()).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        if not torch.equal(g.cpu(), w):
+            raise RuntimeError(f"{kind}: {name} differs from the twin's (largest difference {err})")
+    if not torch.equal(*grown):
+        raise RuntimeError(f"{kind}: tally grew by {grown[0].tolist()}, the twin's {grown[1].tolist()}")
+    return dict(tally=dict(zip(step_kernel.TALLY_NAMES, grown[0].tolist())), trunc=int(got[-1]),
+                kept=int(got[0].sum()), max_abs_err=max_abs_err)
+
+
+def recorded_step_inputs(device):
+    """The arguments of the last ``nms_greedy`` and ``correspond_hits`` calls
+    of a synthetic scan (STEP_SCAN, every frame a keyframe) through
+    DevicePipeline at the cells' world and observation capacities."""
+    from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
+    from boxfusion_tpu_torch.ops import step_kernel
+    from boxfusion_tpu_torch.runtime import DevicePipeline
+
+    cfg = _oracle_config("loops")
+    cfg["data"]._data["gap"] = 1
+    cfg["association"]._data["max_observations"] = STEP_OBS
+    seq = SyntheticSequence(n_frames=STEP_SCAN["n_frames"], n_boxes=STEP_SCAN["n_boxes"])
+    pipe = DevicePipeline(cfg, OracleDetector(seq, noise=STEP_SCAN["noise"]), capacity=STEP_CAPACITY,
+                          device=device)
+    recorded = {}
+
+    def recording(kind, names):
+        def call(*args):
+            recorded[kind] = dict(zip(names, (a.clone() for a in args[:-1])))
+            return getattr(step_kernel, kind)(*args)
+        return call
+
+    with stepping_through(nms_greedy=recording("nms_greedy", NMS_ARGS),
+                          correspond_hits=recording("correspond_hits", CORR_ARGS)):
+        pipe.run(seq, export=False)
+    return recorded, pipe.step_cfg
+
+
+class stepping_through:
+    """For the length of a ``with`` block, the keyframe step calls the given
+    functions in place of ``step_kernel.nms_greedy`` / ``correspond_hits``
+    (it reaches them as ``device_step.step_kernel``); the wrappers' own
+    launch counts stay whole."""
+
+    def __init__(self, **functions):
+        self.functions = functions
+
+    def __enter__(self):
+        import types
+
+        from boxfusion_tpu_torch.ops import step_kernel
+        from boxfusion_tpu_torch.runtime import device_step
+
+        self.saved = device_step.step_kernel
+        device_step.step_kernel = types.SimpleNamespace(
+            nms_greedy=self.functions.get("nms_greedy", step_kernel.nms_greedy),
+            correspond_hits=self.functions.get("correspond_hits", step_kernel.correspond_hits))
+        return self
+
+    def __exit__(self, *exc):
+        from boxfusion_tpu_torch.runtime import device_step
+
+        device_step.step_kernel = self.saved
+        return False
+
+
+def pose_bit_shares(device, n_refs=POSE_PAIRS // 10, views=10, n_centres=20_000, seed=0) -> dict:
+    """How often the step kernels' float32 pose terms (``step_kernel.pose_bits``:
+    the baseline norm, the relative rotation's trace, the angle, and the
+    baseline's norm as the centre escape takes it) differ in bits from
+    PyTorch's own operations in ``_pose_differs`` and ``_center_far``, run as
+    the step runs them (one reference pose against ``views`` member poses a
+    call), on the card and on the CPU; and how often the decision at the
+    gaps differs.  Random rotations over the whole sphere and translations
+    within +-1 m."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from boxfusion_tpu_torch.ops import step_kernel
+
+    rng = np.random.RandomState(seed)
+    pm = random_poses(rng, n_refs * views, 1.0, yaw_deg=180.0, tilt_deg=180.0)
+    pr = random_poses(rng, n_refs, 1.0, yaw_deg=180.0, tilt_deg=180.0)
+    gaps = (0.8, 30.0)
+    n_centres = min(n_centres, n_refs)
+    m_flat = torch.from_numpy(pm).to(device)
+    r_flat = torch.from_numpy(pr).to(device).repeat_interleave(views, 0).contiguous()
+    col = dict(zip(step_kernel.POSE_BITS_COLUMNS, step_kernel.pose_bits(m_flat, r_flat, *gaps).unbind(1)))
+    picked = torch.arange(n_centres, device=device) * views
+
+    def share(a, b):
+        return float((a.view(torch.int32) != b.view(torch.int32)).double().mean())
+
+    shares = {}
+    for where in (device, torch.device("cpu")):
+        m = torch.from_numpy(pm).to(where).reshape(n_refs, views, 4, 4)
+        r = torch.from_numpy(pr).to(where)
+        base, trace, angle, differs = [], [], [], []
+        for k in range(n_refs):  # _pose_differs' operations, one call's shapes
+            b = torch.linalg.norm(m[k][:, :3, 3] - r[k][:3, 3], dim=-1)
+            rel = torch.einsum("ij,vkj->vik", r[k][:3, :3], m[k][:, :3, :3])
+            s = rel.diagonal(dim1=1, dim2=2).sum(-1)
+            a = torch.arccos(torch.clamp((s - 1) / 2, -1.0, 1.0)) * (180.0 / math.pi)
+            base.append(b), trace.append(s), angle.append(a)
+            differs.append((b > gaps[0]) | (a > gaps[1]))
+        centre = torch.stack([torch.linalg.norm(m[k, 0, :3, 3] - r[k, :3, 3]) for k in range(n_centres)])
+        base, trace, angle, differs = (torch.cat(x).to(device) for x in (base, trace, angle, differs))
+        shares[where.type] = dict(baseline=share(col["baseline"], base), trace=share(col["trace"], trace),
+                                  angle=share(col["angle"], angle),
+                                  centre=share(col["baseline"][picked], centre.to(device)),
+                                  decision=float(col["differs"].ne(differs.float()).double().mean()))
+    return dict(pairs=n_refs * views, centre_pairs=n_centres, shares=shares)
+
+
+def check_step_kernel(device) -> dict:
+    """nms_greedy and correspond_hits against their twins on a recorded
+    keyframe of a synthetic scan at the cells' shapes (STEP_CAPACITY slots,
+    STEP_VIEWS views, STEP_OBS observations), and on random worlds at that
+    capacity with 300+ contested slots; milliseconds of each kernel and of
+    its twin on the card (the loop the step ran before); launches,
+    registers, spills, shared memory; the float32 pose terms' bit shares."""
+    import torch
+
+    from boxfusion_tpu_torch.ops import step_kernel
+
+    recorded, cfg = recorded_step_inputs(device)
+    held = {kind: step_kernel_against_twin(kind, recorded[kind], cfg)
+            for kind in ("nms_greedy", "correspond_hits") if kind in recorded}
+    big = manager_scene(device, seed=1, G=STEP_CAPACITY, V=STEP_VIEWS, M=STEP_OBS, n=1200,
+                        density=0.0005)
+    contested = int(big["contested"].sum())
+    if contested < 300:
+        raise RuntimeError(f"step kernel: the large world has {contested} contested slots")
+    held["nms_greedy_large"] = step_kernel_against_twin("nms_greedy", big, cfg)
+    corr = corr_scene(device, seed=1, G=STEP_CAPACITY, V=STEP_VIEWS, M=STEP_OBS, hits=40)
+    held["correspond_hits_large"] = step_kernel_against_twin("correspond_hits", corr, cfg)
+
+    times = {}
+    for kind, names, scenes in (("nms_greedy", NMS_ARGS, (recorded.get("nms_greedy"), big)),
+                                ("correspond_hits", CORR_ARGS, (recorded.get("correspond_hits"), corr))):
+        fn, twin = getattr(step_kernel, kind), getattr(step_kernel, kind + "_reference")
+        for label, scene in zip(("recorded", "large"), scenes):
+            if scene is None:
+                continue
+            args = [scene[k] for k in names]
+            times[f"{kind}.{label}"] = dict(ms=cuda_ms(lambda: fn(*args, cfg), reps=20),
+                                            plain_ms=cuda_ms(lambda: twin(*args, cfg), reps=2, warmup=1))
+    rec = dict(name="step_kernel", route="cuda", source="boxfusion_tpu_torch/csrc/step_kernel.cu",
+               replaces=None, capacity=STEP_CAPACITY, views=STEP_VIEWS, observations=STEP_OBS,
+               contested_large=contested, held=held, times=times,
+               ms=times["nms_greedy.large"]["ms"], plain_ms=times["nms_greedy.large"]["plain_ms"],
+               max_abs_err=max(h["max_abs_err"] for h in held.values()), bound_ms=None,
+               bound_by="latency (a serial chain of picks and records)",
+               library_ms=None, info=step_kernel.kernel_info(STEP_CAPACITY),
+               pose_bits=pose_bit_shares(device))
+    print(json.dumps({"phase": "kernels", **rec}))
+    for where, shares in rec["pose_bits"]["shares"].items():
+        if shares["decision"]:
+            raise RuntimeError(f"step kernel: the pose test decides apart from PyTorch's on the {where} "
+                               f"in a share {shares['decision']} of the pairs")
+    return rec
+
+
 def phase_kernels(device) -> list:
     return [check_fitness(device), check_pst_search(device), check_attention(device),
-            check_tiled_attention(device)]
+            check_tiled_attention(device), check_step_kernel(device)]
 
 
 def phase_ablation(device) -> dict:
@@ -904,8 +1188,9 @@ def phase_main(device) -> dict:
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
 
-    kernels = (pst_search, fitness_cells, whole_seq_attention)
+    kernels = (pst_search, fitness_cells, whole_seq_attention, nms_greedy, correspond_hits)
     plain, _ = run_main_path(device, kernels=kernels)
     print(json.dumps(plain))
     check_search_launches(plain["launches"], "main path")
@@ -1228,9 +1513,10 @@ def phase_device_main(device) -> dict:
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
 
-    kernels = (pst_search, fitness_cells, whole_seq_attention, tiled_attention)
+    kernels = (pst_search, fitness_cells, whole_seq_attention, tiled_attention, nms_greedy, correspond_hits)
     plain, _ = run_device_main_path(device, kernels=kernels)
     print(json.dumps(plain))
     check_search_launches(plain["launches"], "device main path")
@@ -1482,9 +1768,10 @@ def phase_fused(device, dimension=768, clip_cfg=None, n_frames=24, image_hw=(384
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
 
     t_phase = time.perf_counter()
-    kernels = (pst_search, fitness_cells, whole_seq_attention)
+    kernels = (pst_search, fitness_cells, whole_seq_attention, nms_greedy, correspond_hits)
     clip_cfg = clip_cfg or clip_l14_config()
     model = make_main_model(device, dimension=dimension)
     labeler = make_labeler(device, clip_cfg)
@@ -1717,10 +2004,11 @@ def phase_batched(device, n_lanes=4, dimension=768, clip_cfg=None, n_frames=24,
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.runtime import BatchedPipeline, CuTRDetector, DevicePipeline
 
     t_phase = time.perf_counter()
-    kernels = (pst_search, fitness_cells, whole_seq_attention)
+    kernels = (pst_search, fitness_cells, whole_seq_attention, nms_greedy, correspond_hits)
     model = make_main_model(device, dimension=dimension)
     labeler = make_labeler(device, clip_cfg)
     lanes = [main_path_frames(seed=s, n_frames=n_frames, image_hw=image_hw) for s in range(n_lanes)]
@@ -2223,12 +2511,14 @@ def phase_train(device) -> dict:
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
     from boxfusion_tpu_torch.utils.checkpoint import restore_params
 
     card = card_line()
-    kernels = (fitness_cells, pst_search, whole_seq_attention, tiled_attention)
-    names = ("fitness_cells", "pst_search", "whole_seq_attention", "tiled_attention")
+    kernels = (fitness_cells, pst_search, whole_seq_attention, tiled_attention, nms_greedy, correspond_hits)
+    names = ("fitness_cells", "pst_search", "whole_seq_attention", "tiled_attention", "nms_greedy",
+             "correspond_hits")
 
     # the trainer at full width, as a subprocess; its checkpoint restored
     with tempfile.TemporaryDirectory() as tmp:
@@ -2366,6 +2656,7 @@ def phase_native(device, dimension=768, n_frames=24, image_hw=(384, 512)) -> dic
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.runtime import CuTRDetector, FusedDevicePipeline
 
     t0 = time.perf_counter()
@@ -2376,7 +2667,7 @@ def phase_native(device, dimension=768, n_frames=24, image_hw=(384, 512)) -> dic
         rec["build_error"] = build_error()
     else:
         rec["checks"] = native_checks(loader)
-    kernels = (fitness_cells, pst_search, whole_seq_attention)
+    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
     with tempfile.TemporaryDirectory() as tmp:
         frames = main_path_frames(seed=3, n_frames=n_frames, image_hw=image_hw)
         write_ca1m_sequence(frames, tmp)
@@ -2435,8 +2726,9 @@ def phase_trace(device) -> dict:
     the top device rows, the device's busy share of the traced loop (the
     union of kernel, memcpy and memset intervals over the loop's
     record_function span) and its five longest idle gaps with the host op
-    running through each.  The pst_search kernel events of the whole trace
-    must equal the wrapper's launch count: the counts are zeroed just before
+    running through each.  The pst_search, nms_greedy and correspond_hits
+    kernel events of the whole trace must each equal the wrapper's launch
+    count: the counts are zeroed just before
     the profiler starts and read after it stops, so the trace and the count
     cover the same run.  The span is on the host's clock and the kernels on
     the card's, so those inside the span are printed, not held: the last
@@ -2446,12 +2738,13 @@ def phase_trace(device) -> dict:
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.tools import trace_keyframe, trace_stress
     from boxfusion_tpu_torch.utils.profiling import count_events, device_activity
 
     import torch
 
-    kernels = (fitness_cells, pst_search, whole_seq_attention)
+    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
 
     def zero():
         for k in kernels:
@@ -2467,9 +2760,10 @@ def phase_trace(device) -> dict:
             events = res["events"]
             act = device_activity(events, tool.SPAN, n_gaps=5)
             in_trace = count_events(events, "pst_search_kernel")
+            step_events = {k: count_events(events, k + "_kernel") for k in ("nms_greedy", "correspond_hits")}
             rec = dict(phase="trace", tool=name, keyframes=res["keyframes"], seconds=time.perf_counter() - t0,
                        trace_mb=os.path.getsize(res["path"]) / 1e6, launches=launches,
-                       pst_search_events=in_trace,
+                       pst_search_events=in_trace, step_kernel_events=step_events,
                        pst_search_events_in_span=count_events(events, "pst_search_kernel", span=tool.SPAN), **act,
                        top=[dict(name=n[:100], ms=ms, count=c) for n, ms, c in res["rows"][:10]])
             print(json.dumps(rec))
@@ -2478,6 +2772,9 @@ def phase_trace(device) -> dict:
             if in_trace != launches["pst_search"]:
                 raise RuntimeError(f"{name}: {in_trace} pst_search kernel events in the trace, "
                                    f"{launches['pst_search']} launches counted")
+            for k, n in step_events.items():
+                if n != launches[k]:
+                    raise RuntimeError(f"{name}: {n} {k} kernel events in the trace, {launches[k]} launches counted")
             check_search_launches(launches, name)
             by_tool[name] = launches
     return by_tool
@@ -2648,10 +2945,11 @@ def phase_tools(device) -> dict:
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
 
     import torch
 
-    kernels = (fitness_cells, pst_search, whole_seq_attention)
+    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
 
     def zero():
         for k in kernels:
@@ -2802,9 +3100,10 @@ def phase_bench(device) -> dict:
     from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
     from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
     from boxfusion_tpu_torch.ops.pst_search import pst_search
+    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.tools import profile_gap1, profile_r5
 
-    kernels = (fitness_cells, pst_search, whole_seq_attention)
+    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
 
     def zero():
         for k in kernels:
@@ -2919,7 +3218,8 @@ def main() -> int:
     # "launches_by_path"; phase 2's run of the eager loop (multiview_fitness's
     # path, off the main path) for fitness_cells; the ablation for
     # tiled_attention; every kernel's count over phase 11's train steps (0:
-    # training runs plain attention) under "launches_by_path" "train"
+    # training runs plain attention) under "launches_by_path" "train"; for
+    # the step kernels each path's counts of nms_greedy and correspond_hits
     launches["fitness_cells"] = next(r for r in krecs if r["name"] == "pst_search")[
         "eager_fitness_cells_launches"]
     path_counts = {}
@@ -2934,7 +3234,14 @@ def main() -> int:
              "pst_search": ("eager_kernel_ms", "one_iter_max_abs_err", "registers", "local_bytes",
                             "smem_bytes", "threads", "cluster", "max_active_clusters"),
              "whole_seq_attention": ATTENTION_RECORD_KEYS,
-             "tiled_attention": KERNEL_INFO_KEYS + ("bf16",)}
+             "tiled_attention": KERNEL_INFO_KEYS + ("bf16",),
+             "step_kernel": ("held", "times", "info", "pose_bits")}
+    # the step kernels: each path's launches of nms_greedy and
+    # correspond_hits (one a stage entered on a card), and their sums
+    path_counts["step_kernel"] = {
+        path: {k: counts[k] for k in ("nms_greedy", "correspond_hits")} for path, counts in by_path.items()}
+    launches["step_kernel"] = {k: sum(c[k] for c in path_counts["step_kernel"].values())
+                               for k in ("nms_greedy", "correspond_hits")}
     kernels = [{**{k: rec[k] for k in keys + extra[rec["name"]]}, "launches": launches[rec["name"]],
                 "launches_by_path": path_counts[rec["name"]]}
                for rec in krecs]

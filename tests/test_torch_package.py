@@ -237,6 +237,9 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert "arch=compute_90a,code=sm_90a" in tiled and "fmad" not in tiled
     assert "use_fast_math" not in tiled
     assert (build.CSRC_DIR / build.SOURCES["tiled_attention_kernel"]).exists()
+    # the step kernel decides by float32 pose tests: -fmad=false, fmaf where it means one
+    assert " ".join(build.NVCC_FLAGS["step_kernel"]) == flags
+    assert (build.CSRC_DIR / build.SOURCES["step_kernel"]).exists()
 
 
 def test_native_build_is_keyed_by_source_flags_and_toolchain(tmp_path, monkeypatch):
