@@ -18,14 +18,12 @@ the device.  Here, with ``fitness_impl="kernel"`` (the default) on a CUDA
 device, the whole search of all N objects is one launch of
 ``ops.pst_search.pst_search`` (one thread-block cluster per object; the loop,
 its early exit and the particle reduction run on the card, and nothing is
-read back: ``cfg.unroll`` changes nothing there).  On the CPU, and with
-``fitness_impl="reference"``, ``search_loop`` runs it eagerly: all N objects
-step together, converged objects are frozen (their updates are masked by
-``done``) and their view cells are masked out of the fitness call, so the
-trajectory does not depend on when the loop stops.  With ``cfg.unroll`` that
-loop runs its fixed ``cfg.iters`` iterations and reads nothing back; without
-it (the default, as in the JAX package) it reads one flag per iteration --
-every object done? -- and stops early, as the ``while_loop`` does
+read back).  On the CPU, and with ``fitness_impl="reference"``,
+``search_loop`` runs it eagerly: all N objects step together, converged
+objects are frozen (their updates are masked by ``done``) and their view
+cells are masked out of the fitness call, so the trajectory does not depend
+on when the loop stops.  That loop reads one flag per iteration -- every
+object done? -- and stops early, as the ``while_loop`` does
 (utils/device.py:host_reads counts and times them, site ``fuse.done``).
 """
 from __future__ import annotations
@@ -55,11 +53,6 @@ class PSTOptConfig:
     # search on a GPU, the eager loop around the plain fitness twin on the
     # CPU) or "reference" (the eager loop around the prepare_polygon path).
     fitness_impl: str = "kernel"
-    # The eager loop only.  True: run the fixed `iters` iterations with no
-    # device-to-host read.  False: read one flag per iteration and stop once
-    # every object is done.  Identical trajectory -- the body freezes
-    # converged objects.
-    unroll: bool = False
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
@@ -164,7 +157,7 @@ def search_loop(xyzlhw0: torch.Tensor, pst: torch.Tensor, active: torch.Tensor, 
     done = ~active  # inactive slots are born converged
 
     for _ in range(cfg.iters):
-        if not cfg.unroll and host_reads.read(done.all(), "fuse.done"):
+        if host_reads.read(done.all(), "fuse.done"):
             break
         success, mean_iou, mean_transform = _cal_transform(
             fitness(xyzlhw, ss, done), pst, ss, cfg.max_contributors)

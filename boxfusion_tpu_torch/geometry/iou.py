@@ -180,7 +180,6 @@ def gated_pair_iou(
     mask_all: torch.Tensor,
     max_pairs: int = MAX_GATED_PAIRS,
     samples_per_axis: int = GRID_SAMPLES_PER_AXIS,
-    static_pairs: bool = False,
     read_site: Optional[str] = None,
 ):
     """(Q x A) gated pairwise OBB IoU under a fixed pair budget.
@@ -192,46 +191,36 @@ def gated_pair_iou(
     all (Q x A) pairs of valid boxes, then the 25^3 lattice IoU runs only on
     the first `max_pairs` gated pairs in row-major order -- the pairs the JAX
     package's ``top_k`` over the 0/1 gate selects.  Gated pairs beyond the
-    budget are scored 0; the caller reports ``n_gated - max_pairs``.
+    budget are scored 0; the caller reports ``n_gated - max_pairs``.  The
+    gated count is read to the host (one device-to-host read), so that the
+    lattice runs on the gated pairs only.
 
     Args:
       corners_q: (Q, 8, 3) query world corners; mask_q: (Q,) validity.
       corners_all: (A, 8, 3); mask_all: (A,).
-      static_pairs: False reads the gated count to the host (one
-        device-to-host read) and runs the lattice on the gated pairs only.
-        True reads nothing: the lattice runs on min(max_pairs, Q * A) pairs,
-        gated ones first, the others scored 0, and ``n_gated`` stays a tensor.
       read_site: where given, the read of the gated count is counted and
         timed under this site (``utils/device.py:host_reads``), as the
         device engine's reads are; None leaves it uncounted.
 
     Returns:
       (pair_idx (k,) int64 flat row-major indices into Q*A, vals (k,) IoUs,
-      n_gated: int, or a 0-d int32 tensor with ``static_pairs``).
+      n_gated: int).
     """
     A = corners_all.shape[0]
     gate = obb_intersect_mask(corners_q[:, None], corners_all[None])  # (Q, A)
     flat = (gate & mask_q.bool()[:, None] & mask_all.bool()[None]).reshape(-1)
-    if static_pairs:
-        k = min(max_pairs, flat.shape[0])
-        n_gated = flat.sum().to(torch.int32)
-        # stable: gated pairs first, each group in ascending flat index
-        pair_idx = torch.sort(flat.to(torch.int8), descending=True, stable=True).indices[:k]
+    if read_site is None:
+        flat_idx = torch.nonzero(flat).reshape(-1)
     else:
-        if read_site is None:
+        with host_reads.waiting(read_site):
             flat_idx = torch.nonzero(flat).reshape(-1)
-        else:
-            with host_reads.waiting(read_site):
-                flat_idx = torch.nonzero(flat).reshape(-1)
-        n_gated = int(flat_idx.numel())
-        pair_idx = flat_idx[:max_pairs]
+    n_gated = int(flat_idx.numel())
+    pair_idx = flat_idx[:max_pairs]
     if pair_idx.shape[0] == 0:
         return pair_idx, corners_q.new_zeros(0), n_gated
     vals = obb_grid_iou_pairs(
         corners_q[pair_idx // A], corners_all[pair_idx % A], samples_per_axis
     )
-    if static_pairs:
-        vals = torch.where(flat[pair_idx], vals, 0.0)
     return pair_idx, vals, n_gated
 
 

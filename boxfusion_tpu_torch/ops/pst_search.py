@@ -166,8 +166,8 @@ def pst_search(init_xyzlhw, R, pst, cam_poses, K, view_mask, obj_mask, prep, H, 
       camera-to-world; K: (3, 3) -- all float32.
       view_mask: (N, V) bool live view slots; obj_mask: (N,) bool real objects.
       prep: ``prepare_observed`` of the (N * V) observed polygons.
-      H, W: image bounds.  cfg: ``PSTOptConfig`` (its ``fitness_impl`` and
-        ``unroll`` are not read: the loop runs on the card, with no read).
+      H, W: image bounds.  cfg: ``PSTOptConfig`` (its ``fitness_impl`` is
+        not read: the loop runs on the card, with no read).
       All tensors contiguous, on one device.
 
     Returns:

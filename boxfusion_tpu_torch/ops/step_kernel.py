@@ -128,7 +128,7 @@ def correspond_hits_reference(todo, best, new_wins, keep, flist, fcount, fflag, 
     hits = host_reads.read(todo.sum(), "correspond")
     for _ in range(hits):
         trunc_acc += _corr_body(
-            todo, best, new_wins, flist, fcount, fflag, keep, valid_num, obs_pose, init_id, cfg, None
+            todo, best, new_wins, flist, fcount, fflag, keep, valid_num, obs_pose, init_id, cfg
         )
     tally(todo.device).add_(torch.tensor([0, 0, hits]).to(todo.device))
     return keep, flist, fcount, fflag, valid_num, trunc_acc

@@ -9,9 +9,8 @@ debugging and parity tests.
 
 What the step still asks of the host is counted: ``DevicePipeline.host_reads``
 is the number of device-to-host reads its keyframe steps made to steer loops
-and stage gates (runtime/device_step.py says which; the ``"unrolled"`` engine
-makes none), and ``timings["host_read_wait"]`` the host-clock seconds spent
-in them.
+and stage gates (runtime/device_step.py says which), and
+``timings["host_read_wait"]`` the host-clock seconds spent in them.
 """
 from __future__ import annotations
 
@@ -38,20 +37,6 @@ _FITNESS_IMPL = {"auto": "kernel", "pallas": "kernel", "kernel": "kernel",
                  "xla": "reference", "reference": "reference"}
 
 
-def resolve_engine(cfg) -> str:
-    """Resolve association.engine: "auto" -> "loops".
-
-    "loops" reads its loop predicates on the host and stops early;
-    "unrolled" runs budgeted masked bodies and reads nothing
-    (runtime/device_step.py).  PERF.md keeps their times on the card."""
-    engine = str(cfg["association"]["engine"]) if "engine" in cfg["association"] else "auto"
-    if engine == "auto":
-        engine = "loops"
-    if engine not in ("loops", "unrolled"):
-        raise ValueError(f"association.engine must be auto|loops|unrolled, got {engine}")
-    return engine
-
-
 def pack_meta(frame, count: int) -> np.ndarray:
     """Pack a frame's (pose, K_img, K_depth, image_hw, frame_idx) into the
     (META_WIDTH,) f32 transfer vector every keyframe engine consumes --
@@ -71,12 +56,16 @@ def step_config_from(cfg) -> StepConfig:
     ro = bf["random_opt"]
     det = cfg["detection"]
     assoc = cfg["association"]
-    engine = resolve_engine(cfg)
+    # The JAX package's files may name its two step engines; the port has
+    # one, its "loops" engine (runtime/device_step.py).
+    engine = str(assoc["engine"]) if "engine" in assoc else "auto"
+    if engine not in ("auto", "loops"):
+        raise ValueError(f"association.engine: the port has one step engine, \"loops\" "
+                         f"(or \"auto\"), got {engine!r}")
     fitness_impl = str(bf["fitness_impl"]) if "fitness_impl" in bf else "auto"
     if fitness_impl not in _FITNESS_IMPL:
         raise ValueError(f"box_fusion.fitness_impl must be one of {sorted(_FITNESS_IMPL)}, "
                          f"got {fitness_impl}")
-    budgets = {k: int(assoc[k]) for k in ("max_nms_sweeps", "max_nms_records") if k in assoc}
     return StepConfig(
         score_thresh=float(det["score_thresh"]),
         uv_bound=bool(det["uv_bound"]),
@@ -93,15 +82,12 @@ def step_config_from(cfg) -> StepConfig:
         max_fusions=int(bf["max_fusions_per_frame"]),
         check_valid=bool(bf["check_valid"]),
         gap=int(cfg["data"]["gap"]),
-        engine=engine,
-        **budgets,
         opt=PSTOptConfig(
             iters=int(bf["iters"]),
             center_init_size=float(ro["center_init_size"]),
             center_scaling_coefficient=float(ro["center_scaling_coefficient"]),
             shape_init_size=float(ro["shape_init_size"]),
             shape_scaling_coefficient=float(ro["shape_scaling_coefficient"]),
-            unroll=engine == "unrolled",
             fitness_impl=_FITNESS_IMPL[fitness_impl],
         ),
     )
@@ -394,12 +380,5 @@ class DevicePipeline:
                 f"[boxfusion-tpu] WARNING: {st['truncated_gated_pairs']} gated "
                 "IoU pairs exceeded max_gated_pairs and were scored 0; NMS may "
                 "under-merge on very dense scenes (raise StepConfig.max_gated_pairs)."
-            )
-        if st.get("nms_budget_exhausted"):
-            print(
-                f"[boxfusion-tpu] WARNING: {st['nms_budget_exhausted']} unrolled-"
-                "NMS sweep/record budget exhaustions; association decisions may "
-                "diverge from the reference on this sequence (raise "
-                "association.max_nms_sweeps / max_nms_records)."
             )
         return world

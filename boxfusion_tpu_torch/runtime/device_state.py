@@ -40,8 +40,8 @@ STATS_NAMES = (
     # eligible fusion slots pushed past max_fusions, counted once per
     # (keyframe, slot) occurrence: deferral pressure, not distinct objects
     "deferred_fusions",
-    # unrolled-engine NMS budgets hit (StepConfig.max_nms_sweeps /
-    # max_nms_records)
+    # the JAX package's unrolled-engine NMS budgets hit; the port never
+    # writes it, and a snapshot from the JAX package may carry a count here
     "nms_budget_exhausted",
 )
 
@@ -85,7 +85,8 @@ class DeviceState:
     # [4] detections past the CLIP label budget,
     # [5] fusion-list members dropped past max_views,
     # [6] eligible fusion slots deferred past max_fusions,
-    # [7] unrolled-NMS sweep/record budget exhaustions.
+    # [7] the JAX package's unrolled-NMS budget exhaustions (never written
+    #     here; kept so that snapshots cross between the packages).
     stats: torch.Tensor       # (STATS_WIDTH,) int32
 
     @property

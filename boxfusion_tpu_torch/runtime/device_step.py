@@ -21,25 +21,16 @@ fixed-shape tensors that stay on the state's device:
 What eager PyTorch changes.  The JAX step is one compiled program: its
 ``while_loop`` and ``cond`` predicates stay on the device and the host only
 enqueues.  Here a loop that stops early or a stage that is skipped needs its
-predicate on the host, and each such read waits for the device.  The two
-engines of ``StepConfig.engine`` are the two answers, with identical
-decisions:
-
-  * ``"loops"`` reads and stops early: one read per keyframe for the stage
-    gates (new detections? first frame?), one per gated-IoU refresh (the
-    gated pair count, so that the lattice runs on gated pairs only) and one
-    for "did a new box survive".  The NMS picks with their records and the
-    correspondence hits run on one thread block each (``ops/step_kernel.py``,
-    one launch a stage): on a card they pay no read, neither per NMS survivor
-    nor for the count of correspondence hits.  On the CPU their plain twins
-    read once per NMS survivor (its suppressed count and whether any box
-    remains) and once for the count of hits, and the PST search once per
-    iteration (fusion/optimizer.py);
-  * ``"unrolled"`` reads nothing: every budgeted body (``max_nms_sweeps``
-    Jacobi sweeps, ``max_nms_records`` record replays, one correspondence
-    body per detection row, ``iters`` PST iterations, ``max_gated_pairs``
-    lattice pairs) runs as a masked update, and every stage gate is computed
-    through -- a skipped body is a ``torch.where`` on what it would write.
+predicate on the host, and each such read waits for the device.  The step
+reads once per keyframe for its stage gates (new detections? first frame?),
+once per gated-IoU refresh (the gated pair count, so that the lattice runs on
+gated pairs only) and once for "did a new box survive".  The NMS picks with
+their records and the correspondence hits run on one thread block each
+(``ops/step_kernel.py``): on a card each stage is one launch and pays no
+read, neither per NMS survivor nor for the count of correspondence hits.  On
+the CPU their plain twins read once per NMS survivor (its suppressed count
+and whether any box remains) and once for the count of hits, and the PST
+search once per iteration (fusion/optimizer.py).
 
 ``utils/device.py:host_reads`` counts and times the reads, each named by its
 site (``step.gate``, ``iou.gated``, ``step.go``, ``meta``; ``nms`` and
@@ -112,20 +103,6 @@ class StepConfig:
     grid_samples: int = 25
     check_valid: bool = False  # drop never-re-observed boxes (box_manager.py:151-166)
     gap: int = 20
-    # Unrolled-engine budgets.  The read-free NMS replay
-    # (_nms_greedy_unrolled) runs one masked body per Jacobi sweep and per
-    # suppression record; bounding the chains by these budgets instead of
-    # the world capacity keeps the per-keyframe launch count independent of
-    # capacity.  Decisions are identical to the loop engine whenever the
-    # budgets cover the scene (sweeps >= greedy dependency depth, records >=
-    # boxes suppressed this keyframe); exhaustion is surfaced in stats[7]
-    # ("nms_budget_exhausted"), never silent.
-    max_nms_sweeps: int = 64
-    max_nms_records: int = 256
-    # "loops": host-read loop predicates, early exit.  "unrolled": masked
-    # budgeted bodies, no host read, IDENTICAL decisions.  Pipelines resolve
-    # "auto" before constructing this config.
-    engine: str = "loops"
     opt: PSTOptConfig = PSTOptConfig()
 
 
@@ -159,8 +136,7 @@ def _merge_sorted(row_a, count_a, row_b, count_b, max_views):
 # greedy NMS + record (instances.py:22-101, box_manager.py:40-88)
 # ---------------------------------------------------------------------------
 
-def _record_core(flist, fcount, fflag, keep, i, j, extra, obs_pose, init_id,
-                 cfg: StepConfig, gate=None):
+def _record_core(flist, fcount, fflag, keep, i, j, extra, obs_pose, init_id, cfg: StepConfig):
     """Process one suppressed/merged box j against survivor i -- the shared
     bookkeeping of record (box_manager.py:48-87) and record_corr
     (box_manager.py:90-129).  ``extra`` is the center-distance escape hatch
@@ -168,9 +144,7 @@ def _record_core(flist, fcount, fflag, keep, i, j, extra, obs_pose, init_id,
 
     ``i`` and ``j`` are (1,) index tensors.  Writes rows i and j of the small
     mutable field set (flist/fcount/fflag/keep) IN PLACE -- the callers own
-    these tensors -- and returns the truncated-member count.  With ``gate``
-    (a 0-d bool tensor) false, every write puts back what was there: the
-    unrolled engine's skipped body.
+    these tensors -- and returns the truncated-member count.
     """
     V = flist.shape[1]
     obs_cap = obs_pose.shape[0]
@@ -215,14 +189,6 @@ def _record_core(flist, fcount, fflag, keep, i, j, extra, obs_pose, init_id,
     new_keep_j = keep_j | do_swap
     new_flag_i = fflag[i][0] | ((~is_single) & fflag[j][0])
 
-    if gate is not None:
-        new_row = torch.where(gate, new_row, row_i)
-        new_count = torch.where(gate, new_count, cnt_i)
-        new_keep_i = torch.where(gate, new_keep_i, keep_i)
-        new_keep_j = torch.where(gate, new_keep_j, keep_j)
-        new_flag_i = torch.where(gate, new_flag_i, fflag[i][0])
-        trunc = torch.where(gate, trunc, 0).to(torch.int32)
-
     flist[i] = new_row[None]
     fcount[i] = new_count.to(fcount.dtype).reshape(1)
     keep[i] = new_keep_i.reshape(1)
@@ -235,7 +201,7 @@ def _center_far(xyzlhw, i, j):
     return torch.linalg.norm(xyzlhw[i][0, :3] - xyzlhw[j][0, :3]) > 0.5
 
 
-def _contested(state: DeviceState, cfg: StepConfig, gate=None):
+def _contested(state: DeviceState, cfg: StepConfig):
     """(contested, isolated) slot masks of the cached overlap graph.
 
     Exact shortcut: a box whose cached IoU against every other alive box is
@@ -252,10 +218,8 @@ def _contested(state: DeviceState, cfg: StepConfig, gate=None):
     G = state.capacity
     slot_valid = torch.arange(G, device=state.device) < state.n
     pair_on = (state.iou > cfg.nms_threshold) & slot_valid[None, :] & slot_valid[:, None]
-    if gate is not None:
-        pair_on = pair_on & gate
     contested = pair_on.any(1) | pair_on.any(0)
-    return pair_on, contested, slot_valid & ~contested
+    return contested, slot_valid & ~contested
 
 
 def _with_stat(stats, index: int, amount):
@@ -273,7 +237,7 @@ def _nms_greedy(state: DeviceState, cfg: StepConfig):
     boxes it suppressed, and whether any box remains).
 
     Returns (state, keep (G,), success (G,))."""
-    _, contested, isolated = _contested(state, cfg)
+    contested, isolated = _contested(state, cfg)
     keep, success, flist, fcount, fflag, valid_num, trunc = step_kernel.nms_greedy(
         state.scores, state.iou, contested, isolated, state.flist, state.fcount, state.fflag,
         state.valid_num, state.xyzlhw, state.obs_pose, state.init_id, cfg,
@@ -281,104 +245,6 @@ def _nms_greedy(state: DeviceState, cfg: StepConfig):
     state = dataclasses.replace(
         state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num,
         stats=_with_stat(state.stats, 5, trunc),
-    )
-    return state, keep, success
-
-
-def _score_rank(scores):
-    """rank[slot] = pick position under score-descending order with ties
-    broken by LARGER slot index -- the total order realized by repeatedly
-    calling ``_argmax_score_desc`` (reference ``scores.argsort()[::-1]``,
-    instances.py:52).  A stable ascending argsort keeps ties in ascending
-    slot order; reversing it yields score-descending, ties slot-descending."""
-    order = torch.argsort(scores, stable=True).flip(0)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(order.shape[0], device=order.device)
-    return rank
-
-
-def _nms_greedy_unrolled(state: DeviceState, cfg: StepConfig, gate=None):
-    """``_nms_greedy`` without a host read (masked budgeted bodies).
-
-    Identical decisions to the loop engine:
-
-      phase 1: the greedy survivor set and each suppressed box's suppressor
-        are pure functions of (score order, IoU cache) -- keep-swaps inside
-        ``record`` never touch the ``remaining`` mask -- so they are computed
-        by a Jacobi fixed-point ladder (after t sweeps every box whose
-        suppressor-dependency depth <= t is settled; G sweeps are exact; a
-        sweep after convergence changes nothing and is masked off);
-      phase 2: the manager bookkeeping IS order-sensitive (box_manager.py:
-        40-88 mutates fusion lists the next record reads), so records replay
-        in the exact loop order -- (survivor pick order, then score-desc
-        within a survivor's batch) -- as a chain of gated bodies that thread
-        only the small mutable fields.
-
-    With ``gate`` (0-d bool) false the whole stage is a no-op: no box is
-    contested, every valid box is kept.
-    """
-    G = state.capacity
-    dev = state.device
-    pair_on, contested, isolated = _contested(state, cfg, gate)
-
-    rank = _score_rank(state.scores)
-    earlier = rank[:, None] < rank[None, :]
-    # M[s, i]: survivor s would suppress i (row-of-s IoU, like the loop's
-    # ``iou[i]`` with i as the picked survivor; the cache may be asymmetric
-    # under pair-budget truncation)
-    M = pair_on & earlier
-
-    # phase 1: Jacobi sweeps to the greedy fixed point, masked off once
-    # converged (a reached fixed point persists; G sweeps bound the depth)
-    surv = contested
-    go = torch.ones((), dtype=torch.bool, device=dev)
-    for _ in range(min(G, cfg.max_nms_sweeps)):
-        hit = (M & surv[:, None]).any(0)
-        new = contested & ~hit
-        changed = (new != surv).any()
-        surv = torch.where(go, new, surv)
-        go = go & changed
-    # go still True = the last executed sweep changed something, so the
-    # fixed point was not yet CONFIRMED within the budget (stats[7])
-    sweeps_short = go.to(torch.int32)
-
-    suppressed = contested & ~surv
-    # suppressor(j) = earliest-pick survivor with M[s, j] (greedy removes j
-    # from ``remaining`` at its first suppression)
-    sup_key = torch.where(M & surv[:, None], rank[:, None], 2 * G)
-    sup_of = torch.argmin(sup_key, dim=0)
-
-    # per-survivor side effects of the outer loop (once per pick)
-    got = torch.zeros(G, dtype=torch.float32, device=dev).index_add(
-        0, sup_of, suppressed.to(torch.float32)
-    )
-    any_supp = got > 0
-    valid_num = state.valid_num + any_supp.to(state.valid_num.dtype)
-    success = any_supp
-    keep = isolated | surv
-
-    # phase 2: replay records in loop order (survivor rank, then box rank)
-    big = 2 * G * G
-    prio = torch.where(suppressed, rank[sup_of] * G + rank, big)
-    flist, fcount, fflag = state.flist.clone(), state.fcount.clone(), state.fflag.clone()
-    trunc_acc = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(min(G, cfg.max_nms_records)):
-        live = prio.min() < big
-        j = torch.argmin(prio).reshape(1)
-        i = sup_of[j]
-        prio[j] = big
-        trunc_acc += _record_core(
-            flist, fcount, fflag, keep, i, j, _center_far(state.xyzlhw, i, j),
-            state.obs_pose, state.init_id, cfg, gate=live,
-        )
-    # records the budget never replayed (their manager bookkeeping is LOST
-    # relative to the reference -- surfaced, never silent)
-    records_short = (prio < big).sum().to(torch.int32)
-
-    stats = _with_stat(state.stats, 5, trunc_acc)
-    stats[7] += sweeps_short + records_short
-    state = dataclasses.replace(
-        state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num, stats=stats
     )
     return state, keep, success
 
@@ -435,7 +301,7 @@ def _corr_plan(state, keep, success, n_before, proj2d, cfg: StepConfig):
 
 
 def _corr_body(todo, best, new_wins, flist, fcount, fflag, keep, valid_num, obs_pose, init_id,
-               cfg: StepConfig, gate):
+               cfg: StepConfig):
     """One hit, the lowest slot still to do: the lower-scoring of the pair is
     merged into the other (record_corr, box_manager.py:90-129: the record
     bookkeeping with a pose-only gate, and the keep-substitute semantics of
@@ -450,16 +316,10 @@ def _corr_body(todo, best, new_wins, flist, fcount, fflag, keep, valid_num, obs_
     wins = new_wins[s]
     cur = torch.where(wins, s, b)
     other = torch.where(wins, b, s)
-    if gate is None:
-        keep[other] = False
-        valid_num[cur] = valid_num[cur] + 1.0
-    else:
-        keep[other] = keep[other] & ~gate
-        valid_num[cur] = valid_num[cur] + gate.to(valid_num.dtype)
+    keep[other] = False
+    valid_num[cur] = valid_num[cur] + 1.0
     no_extra = torch.zeros((), dtype=torch.bool, device=todo.device)
-    return _record_core(
-        flist, fcount, fflag, keep, cur, other, no_extra, obs_pose, init_id, cfg, gate=gate,
-    )
+    return _record_core(flist, fcount, fflag, keep, cur, other, no_extra, obs_pose, init_id, cfg)
 
 
 def _correspondence(state, keep, success, n_before, proj2d, cfg: StepConfig):
@@ -474,26 +334,6 @@ def _correspondence(state, keep, success, n_before, proj2d, cfg: StepConfig):
     state = dataclasses.replace(
         state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num,
         stats=_with_stat(state.stats, 5, trunc),
-    )
-    return state, keep
-
-
-def _correspondence_unrolled(state, keep, success, n_before, proj2d, cfg: StepConfig,
-                             kmax: int):
-    """``_correspondence`` without a host read (see ``_nms_greedy_unrolled``):
-    ``kmax`` gated bodies, at most one hit per appended detection."""
-    todo, best, new_wins = _corr_plan(state, keep, success, n_before, proj2d, cfg)
-    flist, fcount, fflag = state.flist.clone(), state.fcount.clone(), state.fflag.clone()
-    keep, valid_num = keep.clone(), state.valid_num.clone()
-    trunc_acc = torch.zeros((), dtype=torch.int32, device=state.device)
-    for _ in range(min(kmax, state.capacity)):
-        trunc_acc += _corr_body(
-            todo, best, new_wins, flist, fcount, fflag, keep, valid_num, state.obs_pose,
-            state.init_id, cfg, todo.any(),
-        )
-    state = dataclasses.replace(
-        state, flist=flist, fcount=fcount, fflag=fflag, valid_num=valid_num,
-        stats=_with_stat(state.stats, 5, trunc_acc),
     )
     return state, keep
 
@@ -543,17 +383,15 @@ def _gated_iou_rows(corners_q, mask_q, corners_all, mask_all, cfg: StepConfig):
     Returns (rows, truncated): ``truncated`` counts gated pairs beyond the
     ``max_gated_pairs`` budget whose IoU was therefore NOT computed (their
     row entries stay 0) -- surfaced by the pipeline instead of silently
-    weakening NMS on very dense scenes.  The loop engine pays one host read
-    here (the gated count) and runs the lattice on the gated pairs only."""
+    weakening NMS on very dense scenes.  The step pays one host read here
+    (the gated count) and runs the lattice on the gated pairs only."""
     Q = corners_q.shape[0]
     A = corners_all.shape[0]
-    static = cfg.engine == "unrolled"
     pair_idx, vals, n_gated = gated_pair_iou(
         corners_q, mask_q, corners_all, mask_all,
-        cfg.max_gated_pairs, cfg.grid_samples, static_pairs=static, read_site="iou.gated",
+        cfg.max_gated_pairs, cfg.grid_samples, read_site="iou.gated",
     )
-    budget = min(cfg.max_gated_pairs, Q * A)
-    truncated = torch.clamp(n_gated - budget, min=0) if static else max(n_gated - budget, 0)
+    truncated = max(n_gated - min(cfg.max_gated_pairs, Q * A), 0)
     rows = torch.zeros(Q * A, dtype=torch.float32, device=corners_q.device)
     rows[pair_idx] = vals
     return rows.reshape(Q, A), truncated
@@ -563,10 +401,9 @@ def _gated_iou_rows(corners_q, mask_q, corners_all, mask_all, cfg: StepConfig):
 # fusion (box_fusion.py:622-724)
 # ---------------------------------------------------------------------------
 
-def _fuse_device(state: DeviceState, pst, K_img, H, W, cfg: StepConfig, gate=None):
+def _fuse_device(state: DeviceState, pst, K_img, H, W, cfg: StepConfig):
     """Fuse up to ``max_fusions`` eligible slots and refresh their IoU rows.
-    With no eligible slot -- or ``gate`` (0-d bool) false -- the state comes
-    back as it was."""
+    With no eligible slot the state comes back as it was."""
     G = state.capacity
     V = state.max_views
     F = cfg.max_fusions
@@ -575,8 +412,6 @@ def _fuse_device(state: DeviceState, pst, K_img, H, W, cfg: StepConfig, gate=Non
 
     same_as_already = state.already_valid & (state.flist == state.already).all(-1)
     eligible = (state.fcount >= 3) & (slot < state.n) & ~same_as_already
-    if gate is not None:
-        eligible = eligible & gate
 
     # the first F eligible slots: a stable sort keeps ascending-index ties
     cand = torch.sort(eligible.to(torch.int8), descending=True, stable=True).indices[:F]
@@ -788,22 +623,16 @@ def _keyframe_step_impl(
     """
     G = state.capacity
     dev = state.device
-    unrolled = cfg.engine == "unrolled"
     H, W = float(image_hw[0]), float(image_hw[1])
     state = dataclasses.replace(state, stats=_with_stat(state.stats, 3, 1))
     mask = _filter_mask(det, (H, W), cfg)
     n_before = state.n
     state, k_new = _append_detections(state, det, mask, pose, K_depth, (H, W), frame_idx)
 
-    # Stage gates.  The loop engine reads them and skips; the unrolled engine
-    # computes every stage through with `live` masking what must not happen.
-    live = None
-    if unrolled:
-        live = (k_new > 0) & (n_before > 0)
-    else:
-        k_host, n_host = host_reads.read(torch.stack([k_new, n_before]), "step.gate")
-        if k_host == 0:
-            return state
+    # Stage gates: no new detection ends the keyframe here.
+    k_host, n_host = host_reads.read(torch.stack([k_new, n_before]), "step.gate")
+    if k_host == 0:
+        return state
 
     slot = torch.arange(G, device=dev)
     mask_all = slot < state.n
@@ -830,31 +659,21 @@ def _keyframe_step_impl(
     iou.fill_diagonal_(0.0)
     state = dataclasses.replace(state, iou=iou, stats=_with_stat(state.stats, 2, truncated))
 
-    if not unrolled and n_host == 0:  # first frame: nothing to associate with
+    if n_host == 0:  # first frame: nothing to associate with
         return state
 
     with span("step.nms", timings):
-        if unrolled:
-            state, keep, success = _nms_greedy_unrolled(state, cfg, gate=live)
-        else:
-            state, keep, success = _nms_greedy(state, cfg)
+        state, keep, success = _nms_greedy(state, cfg)
 
     with span("step.correspond", timings):
         # 2D projections of the pre-NMS global set for correspondence
         proj2d = project_boxes_to_2d(corners_all, K_depth, pose, H, W)
-        any_new_kept = (keep & is_new).any()
 
         # The reference runs correspondence, the stale drop and fusion only
         # when a new box survived NMS (demo.py:270-298 `if len(cur_keep_idx) > 0`).
-        if unrolled:
-            any_new_kept = any_new_kept & live
-            kmax = det["scores"].shape[0]
-            state, keep = _correspondence_unrolled(state, keep, success, n_before, proj2d, cfg, kmax)
-            go = True
-        else:
-            go = host_reads.read(any_new_kept, "step.go")
-            if go:
-                state, keep = _correspondence(state, keep, success, n_before, proj2d, cfg)
+        go = host_reads.read((keep & is_new).any(), "step.go")
+        if go:
+            state, keep = _correspondence(state, keep, success, n_before, proj2d, cfg)
         state = _compact(state, keep)
 
         if cfg.check_valid and go:
@@ -862,13 +681,11 @@ def _keyframe_step_impl(
             # (box_manager.py:151-166; gated by box_fusion.check_valid)
             alive = slot < state.n
             stale = alive & (state.valid_num == 0) & (state.frame_id < frame_idx - cfg.gap)
-            if unrolled:
-                stale = stale & any_new_kept
             state = _compact(state, alive & ~stale)
 
     if cfg.fusion_use and go:
         with span("step.fuse", timings):
-            state = _fuse_device(state, pst, K_img, H, W, cfg, gate=any_new_kept if unrolled else None)
+            state = _fuse_device(state, pst, K_img, H, W, cfg)
     return state
 
 

@@ -96,7 +96,6 @@ def run(device=None, dim=768, size=512, n_frames=400, gap=20, clip_width=1024, c
     dev = resolve_device(device)
     pipe, frames = build(dev, dim, size, n_frames, gap, clip_width, clip_layers)
     say = print if verbose else (lambda *a, **k: None)
-    say("engine:", pipe.step_cfg.engine, flush=True)
 
     for i, fr in enumerate(frames[: 2 * gap + 1]):  # warm-up
         if i % gap == 0:

@@ -62,13 +62,12 @@ Phases, in order; any failure stops the run with a non-zero exit code:
                 framewise_boxes.pkl.  Then the same with --engine device
                 --capacity 48: returns 0 and prints the world-box count.
   6. device oracle -- the sequence of phase 4 through DevicePipeline (state
-                on the card) under engine "loops" and again under "unrolled":
-                every ground-truth box within 0.15 m, at least one fused, no
-                dropped or truncated count, the two engines' worlds equal
-                (integers exact, floats 1e-6); milliseconds and host reads
-                per keyframe of each.  Then save_state at the middle of a run,
-                restore_state into a fresh pipeline, and the resumed world
-                equal to the uninterrupted one.
+                on the card, the one keyframe step): every ground-truth box
+                within 0.15 m, at least one fused, no dropped or truncated
+                count; milliseconds and host reads per keyframe.  Then
+                save_state at the middle of a run, restore_state into a fresh
+                pipeline, and the resumed world equal to the uninterrupted
+                one (integers exact, floats 1e-6).
   7. device main -- phase 3's configuration through
                 CuTRDetector(device_output=True) -> DevicePipeline(capacity
                 2048), unlabelled and then labelled by CLIP ViT-L/14 through
@@ -222,6 +221,13 @@ SEARCH_ITERS = 20  # box_fusion.iters
 # that tie particle 0, and the search is chaotic after that), and within
 # 1e-3 after one iteration; need_update equal.
 SEARCH_TOL, ONE_ITER_TOL = 5e-3, 1e-3
+
+# The package's kernels whose launches the phases count, each by its
+# ``launches`` counter: (module under boxfusion_tpu_torch.ops, function).  A
+# phase that runs the ablation adds tiled_attention (counted_kernels).
+COUNTED_KERNELS = (("fitness_kernel", "fitness_cells"), ("pst_search", "pst_search"),
+                   ("attention_kernel", "whole_seq_attention"), ("step_kernel", "nms_greedy"),
+                   ("step_kernel", "correspond_hits"))
 
 # The step kernels (ops/step_kernel.py) at the cells' shapes: world slots,
 # view slots, observation-bank rows (benchmark/configs/*.json); the pose
@@ -875,7 +881,7 @@ def recorded_step_inputs(device):
     from boxfusion_tpu_torch.ops import step_kernel
     from boxfusion_tpu_torch.runtime import DevicePipeline
 
-    cfg = _oracle_config("loops")
+    cfg = _oracle_config()
     cfg["data"]._data["gap"] = 1
     cfg["association"]._data["max_observations"] = STEP_OBS
     seq = SyntheticSequence(n_frames=STEP_SCAN["n_frames"], n_boxes=STEP_SCAN["n_boxes"])
@@ -1116,6 +1122,20 @@ def make_labeler(device, clip_cfg=None, n_classes=473):
     return OpenVocabLabeler(names, text, cfg=clip_cfg, device=device).init_random(0)
 
 
+def counted_kernels(ablation: bool = False) -> tuple:
+    """COUNTED_KERNELS' functions, and tiled_attention after them with
+    ``ablation``."""
+    import importlib
+
+    found = tuple(getattr(importlib.import_module("boxfusion_tpu_torch.ops." + mod), name)
+                  for mod, name in COUNTED_KERNELS)
+    if ablation:
+        from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
+
+        found += (tiled_attention,)
+    return found
+
+
 def run_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(384, 512), kernels=(),
                   label=False, clip_cfg=None):
     """Drive OnlinePipeline + CuTRDetector once, with or without the CLIP
@@ -1185,12 +1205,7 @@ def check_search_launches(launches: dict, what: str) -> None:
 def phase_main(device) -> dict:
     """Both paths, each with the counts zeroed just before and read just
     after; returns the launch counts of the labelled run."""
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
-
-    kernels = (pst_search, fitness_cells, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
     plain, _ = run_main_path(device, kernels=kernels)
     print(json.dumps(plain))
     check_search_launches(plain["launches"], "main path")
@@ -1292,12 +1307,11 @@ def phase_cli(extra_args=()) -> dict:
 
 
 # --------------------------------------------------------------------- phase 6
-def _oracle_config(engine: str):
+def _oracle_config():
     from boxfusion_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(HERE, "config/ca1m.yaml"))
     cfg["box_fusion"]._data["pst_path"] = None  # the CLI's synthetic fallback
-    cfg["association"]._data["engine"] = engine
     return cfg
 
 
@@ -1316,15 +1330,15 @@ def _worlds_equal(a: dict, b: dict, what: str) -> None:
             raise RuntimeError(f"{what}: {k} differs by {err}")
 
 
-def run_device_oracle(device, engine: str, n_frames=60, n_boxes=6, noise=0.02):
-    """Phase 4's sequence through DevicePipeline; returns (record, world)."""
+def run_device_oracle(device, n_frames=60, n_boxes=6, noise=0.02):
+    """Phase 4's sequence through DevicePipeline; returns its record."""
     import numpy as np
 
     from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
     from boxfusion_tpu_torch.runtime import DevicePipeline
 
     seq = SyntheticSequence(n_frames=n_frames, n_boxes=n_boxes)
-    pipe = DevicePipeline(_oracle_config(engine), OracleDetector(seq, noise=noise), capacity=512,
+    pipe = DevicePipeline(_oracle_config(), OracleDetector(seq, noise=noise), capacity=512,
                           device=device)
     pipe.run(seq, export=False)  # first pass: allocator and library warm-up
     pipe.reset()
@@ -1335,7 +1349,7 @@ def run_device_oracle(device, engine: str, n_frames=60, n_boxes=6, noise=0.02):
     seconds = time.perf_counter() - t0
     st = world["stats"]
     d = np.linalg.norm(world["xyzlhw"][:, None, :3] - seq.gt_xyzlhw[None, :, :3], axis=-1)
-    rec = dict(phase="device_oracle", engine=engine, world_boxes=len(world["scores"]),
+    rec = dict(phase="device_oracle", world_boxes=len(world["scores"]),
                gt_boxes=n_boxes, max_gt_match_m=float(d.min(0).max()),
                fused_boxes=int(world["fusion_flag"].sum()), keyframes=st["keyframes"],
                ms_per_keyframe=1e3 * seconds / st["keyframes"],
@@ -1343,15 +1357,15 @@ def run_device_oracle(device, engine: str, n_frames=60, n_boxes=6, noise=0.02):
                host_reads_per_keyframe=pipe.host_reads / st["keyframes"], stats=st)
     print(json.dumps(rec))
     if not rec["max_gt_match_m"] < 0.15:
-        raise RuntimeError(f"device oracle [{engine}]: a GT box is {rec['max_gt_match_m']:.3f} m away")
+        raise RuntimeError(f"device oracle: a GT box is {rec['max_gt_match_m']:.3f} m away")
     if rec["fused_boxes"] < 1:
-        raise RuntimeError(f"device oracle [{engine}]: no box was fused")
+        raise RuntimeError("device oracle: no box was fused")
     bad = {k: v for k, v in st.items() if k != "keyframes" and v}
     if bad:
-        raise RuntimeError(f"device oracle [{engine}]: dropped or truncated counts {bad}")
-    if (engine == "unrolled") != (pipe.host_reads == 0):
-        raise RuntimeError(f"device oracle [{engine}]: {pipe.host_reads} host reads")
-    return rec, world
+        raise RuntimeError(f"device oracle: dropped or truncated counts {bad}")
+    if pipe.host_reads == 0:  # the step reads its stage gates at every keyframe
+        raise RuntimeError("device oracle: no host read was counted")
+    return rec
 
 
 def run_snapshot_round_trip(device, n_frames=60, cut=40, noise=0.02) -> dict:
@@ -1362,7 +1376,7 @@ def run_snapshot_round_trip(device, n_frames=60, cut=40, noise=0.02) -> dict:
 
     seq = SyntheticSequence(n_frames=n_frames, n_boxes=6)
     frames = list(seq)
-    cfg = _oracle_config("loops")
+    cfg = _oracle_config()
     gap = int(cfg["data"]["gap"])
     straight = DevicePipeline(cfg, OracleDetector(seq, noise=noise), capacity=512, device=device).run(frames)
 
@@ -1388,17 +1402,13 @@ def run_snapshot_round_trip(device, n_frames=60, cut=40, noise=0.02) -> dict:
 
 
 def phase_device_oracle(device) -> None:
-    loops, w_loops = run_device_oracle(device, "loops")
-    unrolled, w_unrolled = run_device_oracle(device, "unrolled")
-    _worlds_equal(w_loops, w_unrolled, "loops vs unrolled")
-    print(json.dumps(dict(phase="device_oracle", engines_equal=True,
-                          unrolled_over_loops=unrolled["ms_per_keyframe"] / loops["ms_per_keyframe"])))
+    run_device_oracle(device)
     run_snapshot_round_trip(device)
 
 
 # --------------------------------------------------------------------- phase 7
-STEP_STAGES = ("_append_detections", "_gated_iou_rows", "_nms_greedy", "_nms_greedy_unrolled",
-               "_correspondence", "_correspondence_unrolled", "_compact", "_fuse_device")
+STEP_STAGES = ("_append_detections", "_gated_iou_rows", "_nms_greedy", "_correspondence", "_compact",
+               "_fuse_device")
 
 
 class StageClock:
@@ -1438,7 +1448,7 @@ class StageClock:
 
 
 def run_device_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(384, 512), kernels=(),
-                         label=False, clip_cfg=None, capacity=2048, engine="loops", stage_clock=False):
+                         label=False, clip_cfg=None, capacity=2048, stage_clock=False):
     """Drive DevicePipeline + CuTRDetector(device_output=True) once, with or
     without the CLIP labeler (label_boost_device); returns (record, pipeline)."""
     import contextlib
@@ -1452,7 +1462,6 @@ def run_device_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(38
     from boxfusion_tpu_torch.tools.common import lift_class_bias
 
     cfg = main_path_config()
-    cfg["association"]._data["engine"] = engine
     # the device path labels a fixed budget of rows; 128 covers the detector's
     # top-100, so no row is left unlabelled (the host engine labels every row)
     cfg["detection"]._data["max_label_boxes"] = 128
@@ -1489,7 +1498,7 @@ def run_device_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(38
     if label and not set(world["categories"]) - {""}:
         raise RuntimeError("device main path: the world rows carry no CLIP labels")
     rec = dict(
-        phase="device_main", labelled=bool(label), engine=engine, cutr_width=dimension,
+        phase="device_main", labelled=bool(label), cutr_width=dimension,
         dtype=str(cfg["detection"]["compute_dtype"]), capacity=capacity,
         frames=n_frames, gap=gap, keyframes=n_kf, seconds=seconds, keyframes_per_s=n_kf / seconds,
         ms_per_keyframe=1e3 * seconds / n_kf, host_reads_per_keyframe=pipe.host_reads / n_kf,
@@ -1510,13 +1519,7 @@ def run_device_main_path(device, dimension=768, n_frames=24, gap=1, image_hw=(38
 def phase_device_main(device) -> dict:
     """Unlabelled, labelled, then the synced stage split; returns the launch
     counts of the labelled run."""
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
-    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
-
-    kernels = (pst_search, fitness_cells, whole_seq_attention, tiled_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels(ablation=True)
     plain, _ = run_device_main_path(device, kernels=kernels)
     print(json.dumps(plain))
     check_search_launches(plain["launches"], "device main path")
@@ -1765,13 +1768,8 @@ def phase_fused(device, dimension=768, clip_cfg=None, n_frames=24, image_hw=(384
     per path."""
     import dataclasses
 
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
-
     t_phase = time.perf_counter()
-    kernels = (pst_search, fitness_cells, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
     clip_cfg = clip_cfg or clip_l14_config()
     model = make_main_model(device, dimension=dimension)
     labeler = make_labeler(device, clip_cfg)
@@ -2001,14 +1999,10 @@ def phase_batched(device, n_lanes=4, dimension=768, clip_cfg=None, n_frames=24,
 
     import numpy as np
 
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.runtime import BatchedPipeline, CuTRDetector, DevicePipeline
 
     t_phase = time.perf_counter()
-    kernels = (pst_search, fitness_cells, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
     model = make_main_model(device, dimension=dimension)
     labeler = make_labeler(device, clip_cfg)
     lanes = [main_path_frames(seed=s, n_frames=n_frames, image_hw=image_hw) for s in range(n_lanes)]
@@ -2508,17 +2502,10 @@ def phase_train(device) -> dict:
     from boxfusion_tpu_torch.data_process.__main__ import main as prep_main
     from boxfusion_tpu_torch.geometry.boxes import box_corners
     from boxfusion_tpu_torch.models.cutr import make_cutr
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
-    from boxfusion_tpu_torch.tools.attention_ablation import tiled_attention
     from boxfusion_tpu_torch.utils.checkpoint import restore_params
 
     card = card_line()
-    kernels = (fitness_cells, pst_search, whole_seq_attention, tiled_attention, nms_greedy, correspond_hits)
-    names = ("fitness_cells", "pst_search", "whole_seq_attention", "tiled_attention", "nms_greedy",
-             "correspond_hits")
+    kernels = counted_kernels(ablation=True)
 
     # the trainer at full width, as a subprocess; its checkpoint restored
     with tempfile.TemporaryDirectory() as tmp:
@@ -2542,7 +2529,7 @@ def phase_train(device) -> dict:
         k.launches = 0
     split = step_split(device)
     split.update(sharded_step_ms(device))
-    launches = dict(zip(names, (k.launches for k in kernels)))
+    launches = {k.__name__: k.launches for k in kernels}
     print(json.dumps({"phase": "train", "card": card, "step_split": split, "launches": launches}))
     if any(launches.values()):
         raise RuntimeError(f"train: the training path launched a kernel: {launches}")
@@ -2653,10 +2640,6 @@ def phase_native(device, dimension=768, n_frames=24, image_hw=(384, 512)) -> dic
     import boxfusion_tpu_torch.data.readers as readers
     from boxfusion_tpu_torch.data.readers import CA1MDataset, write_ca1m_sequence
     from boxfusion_tpu_torch.native import Prefetcher, build_error, get_loader
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.runtime import CuTRDetector, FusedDevicePipeline
 
     t0 = time.perf_counter()
@@ -2667,7 +2650,7 @@ def phase_native(device, dimension=768, n_frames=24, image_hw=(384, 512)) -> dic
         rec["build_error"] = build_error()
     else:
         rec["checks"] = native_checks(loader)
-    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         frames = main_path_frames(seed=3, n_frames=n_frames, image_hw=image_hw)
         write_ca1m_sequence(frames, tmp)
@@ -2735,16 +2718,12 @@ def phase_trace(device) -> dict:
     keyframe's search ends a millisecond or two before the span does, and a
     run whose clocks disagree by more moves it past the span's end.
     Returns each tool's launch counts."""
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.tools import trace_keyframe, trace_stress
     from boxfusion_tpu_torch.utils.profiling import count_events, device_activity
 
     import torch
 
-    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
 
     def zero():
         for k in kernels:
@@ -2942,14 +2921,9 @@ def tools_reference_refusal(device) -> None:
 def phase_tools(device) -> dict:
     """The A12b tools on the card, each path's kernels' launch counts zeroed
     just before it and read just after; returns them by path."""
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
-
     import torch
 
-    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
 
     def zero():
         for k in kernels:
@@ -3097,13 +3071,9 @@ def phase_bench(device) -> dict:
     import torch
 
     from boxfusion_tpu_torch import bench
-    from boxfusion_tpu_torch.ops.attention_kernel import whole_seq_attention
-    from boxfusion_tpu_torch.ops.fitness_kernel import fitness_cells
-    from boxfusion_tpu_torch.ops.pst_search import pst_search
-    from boxfusion_tpu_torch.ops.step_kernel import correspond_hits, nms_greedy
     from boxfusion_tpu_torch.tools import profile_gap1, profile_r5
 
-    kernels = (fitness_cells, pst_search, whole_seq_attention, nms_greedy, correspond_hits)
+    kernels = counted_kernels()
 
     def zero():
         for k in kernels:
@@ -3177,7 +3147,7 @@ def main() -> int:
     phase_oracle(device)
     log("phase 5: the command-line entry point, host and device engines")
     phase_cli()
-    log("phase 6: device engine, known answer under loops and unrolled; snapshot round trip")
+    log("phase 6: device engine, known answer; snapshot round trip")
     phase_device_oracle(device)
     log("phase 7: device engine, main path at full width, without and with labels")
     drec = phase_device_main(device)

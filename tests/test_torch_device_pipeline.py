@@ -1,17 +1,18 @@
 """The port's device-resident pipeline against the JAX package's device engine.
 
 The scenarios of tests/test_device_pipeline.py and tests/test_unrolled_engine.py
-at their sizes (capacity 48-64, 16 detections, 128 particles, 5 views), each
-streamed through ``boxfusion_tpu.runtime.device_pipeline.DevicePipeline`` and
-through the port's on ``device="cpu"`` (the fitness kernel's plain twin).  The
-two device engines are held to each other, never to a host engine: the engines
+(its ``loops`` engine, the port's one step) at their sizes (capacity 48-64,
+16 detections, 128 particles, 5 views), each streamed through
+``boxfusion_tpu.runtime.device_pipeline.DevicePipeline`` and through the
+port's on ``device="cpu"`` (the fitness kernel's plain twin).  The two
+device engines are held to each other, never to a host engine: the engines
 differ by design (per-slot ``already``, the NMS tie order).
 
 Tolerances: ``init_id``, ``fusion_flag``, ``fusion_list``, ``valid_num``,
 ``category``, ``frame_id`` and ``stats`` identical; ``xyzlhw`` within 5e-3
 where a box was fused (PST coordinates are chaotic across stacks) and 1e-5
-where not; R within 1e-5; boosted scores within 1e-4; the port's two engines
-(``loops``, ``unrolled``) equal each other to 1e-6.
+where not; R within 1e-5; boosted scores within 1e-4; two runs of the port
+on one sequence equal each other to 1e-6.
 """
 import dataclasses
 import pickle
@@ -30,7 +31,7 @@ from boxfusion_tpu.utils.config import load_config as jax_load_config
 from boxfusion_tpu_torch import cli
 from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
 from boxfusion_tpu_torch.runtime import DevicePipeline, device_step
-from boxfusion_tpu_torch.runtime.device_pipeline import resolve_engine, step_config_from
+from boxfusion_tpu_torch.runtime.device_pipeline import step_config_from
 from boxfusion_tpu_torch.runtime.device_state import init_state, state_from_numpy, state_to_numpy
 from boxfusion_tpu_torch.utils.config import load_config
 
@@ -66,9 +67,9 @@ def _jax_world(noise, seed, n_frames=25, n_boxes=4, capacity=48, **over):
     return pipe.run(seq, gap=5)
 
 
-def _torch_run(noise, seed, n_frames=25, n_boxes=4, capacity=48, engine=None, **over):
+def _torch_run(noise, seed, n_frames=25, n_boxes=4, capacity=48, **over):
     seq = SyntheticSequence(n_frames=n_frames, n_boxes=n_boxes, seed=seed)
-    pipe = DevicePipeline(_cfg(engine=engine, **over), OracleDetector(seq, noise=noise, seed=seed + 1),
+    pipe = DevicePipeline(_cfg(**over), OracleDetector(seq, noise=noise, seed=seed + 1),
                           capacity=capacity, device="cpu")
     return seq, pipe, pipe.run(seq, gap=5)
 
@@ -109,7 +110,7 @@ def test_device_matches_gt_and_jax_noiseless():
 
 
 @pytest.mark.parametrize("noise,seed,fused_tol", [(0.02, 3, FUSED_TOL), (0.02, 7, 3e-2),
-                                                  (0.04, 1, 3e-2)])
+                                                  (0.04, 1, 3e-2), (0.05, 3, FUSED_TOL)])
 def test_device_matches_jax_noisy_through_fusion(noise, seed, fused_tol):
     """Decisions, lists, counters and every unfused float identical in all
     three.  Fused coordinates: the two stacks' fitness values agree to 2e-3
@@ -269,14 +270,13 @@ def _step_det(centers, scores):
     )
 
 
-@pytest.mark.parametrize("engine", ["loops", "unrolled"])
-def test_world_capacity_overflow_drops_not_corrupts(engine):
+def test_world_capacity_overflow_drops_not_corrupts():
     """When the world buffer fills, excess detections are dropped and
     counted; existing rows stay intact (tests/test_device_pipeline.py:158)."""
     cap, kmax = 8, 6
     state = init_state(capacity=cap, max_views=5, obs_capacity=12, device="cpu")
     cfg = device_step.StepConfig(score_thresh=0.1, fusion_use=False, nms_threshold=0.1,
-                                 uv_bound=False, floor_mask=False, engine=engine)
+                                 uv_bound=False, floor_mask=False)
     pst = torch.zeros(128, 6)
 
     def det_at(xoff):  # 6 well-separated boxes in front of the camera
@@ -299,13 +299,12 @@ def test_world_capacity_overflow_drops_not_corrupts(engine):
     assert int(state.obs_n) == 12 and int(state.n) == 6 and state.stats[:2].tolist() == [4, 2]
 
 
-@pytest.mark.parametrize("engine", ["loops", "unrolled"])
-def test_device_check_valid_drops_unreobserved(engine):
+def test_device_check_valid_drops_unreobserved():
     """box_fusion.check_valid: a box never re-observed within one keyframe
     gap is dropped (tests/test_device_pipeline.py:215)."""
     gap = 5
     cfg = device_step.StepConfig(score_thresh=0.1, fusion_use=False, uv_bound=False, floor_mask=False,
-                                 check_valid=True, gap=gap, engine=engine)
+                                 check_valid=True, gap=gap)
     state = init_state(capacity=16, max_views=5, obs_capacity=64, device="cpu")
     pst = torch.zeros(128, 6)
     A, B = [0.0, 0.0, 3.0], [4.0, 0.0, 3.0]
@@ -346,20 +345,11 @@ def test_worker_error_propagates_mid_run(monkeypatch):
     assert int(pipe.state.n) == 3
 
 
-# ------------------------------------------------------------ loops = unrolled
-@pytest.mark.parametrize("noise,seed", [(0.0, 0), (0.05, 3)])
-def test_engine_parity_synthetic(noise, seed):
-    _, loops, w_loops = _torch_run(noise, seed, engine="loops")
-    _, unrolled, w_unrolled = _torch_run(noise, seed, engine="unrolled")
-    assert_engines_equal(w_loops, w_unrolled)
-    assert loops.host_reads > 0 and unrolled.host_reads == 0
-    assert w_unrolled["stats"]["nms_budget_exhausted"] == 0
-
-
+# ------------------------------------------------------------ dense overlaps
 def test_engine_parity_dense_overlaps_and_jax():
     """Heavy contention: jittered duplicates of every box force suppression
     chains, keep-swaps and correspondence merges
-    (tests/test_unrolled_engine.py:63).  Both engines, and the JAX loops one."""
+    (tests/test_unrolled_engine.py:63), against the JAX loops engine."""
 
     class CrowdedDetector:
         def __init__(self, seq, seed, oracle_cls):
@@ -381,57 +371,48 @@ def test_engine_parity_dense_overlaps_and_jax():
                 out[k] = np.concatenate([np.asarray(v), dup], axis=0)
             return out
 
-    worlds = {}
-    for engine in ("loops", "unrolled"):
-        seq = SyntheticSequence(n_frames=20, n_boxes=5, seed=11)
-        pipe = DevicePipeline(_cfg(engine=engine), CrowdedDetector(seq, 11, OracleDetector),
-                              capacity=48, device="cpu")
-        worlds[engine] = pipe.run(seq, gap=5)
-    assert_engines_equal(worlds["loops"], worlds["unrolled"])
+    seq = SyntheticSequence(n_frames=20, n_boxes=5, seed=11)
+    got = DevicePipeline(_cfg(), CrowdedDetector(seq, 11, OracleDetector), capacity=48,
+                         device="cpu").run(seq, gap=5)
     jseq = JaxSequence(n_frames=20, n_boxes=5, seed=11)
     want = JaxDevicePipeline(_cfg(jax_load_config), CrowdedDetector(jseq, 11, JaxOracle),
                              capacity=48).run(jseq, gap=5)
-    assert_worlds_match(worlds["loops"], want)
+    assert_worlds_match(got, want)
     assert sum(v for v in want["valid_num"]) > 0
 
 
-def test_nms_budget_exhaustion_surfaces(capsys):
-    """tests/test_unrolled_engine.py:134: a starved record budget shows in
-    stats and in run()'s warning; the defaults cover the same load."""
-    def run_with(records):
-        _, _, world = _torch_run(0.02, 2, n_frames=10, n_boxes=5, engine="unrolled",
-                                 **{"association.max_nms_records": records})
-        return world["stats"]["nms_budget_exhausted"]
-
-    capsys.readouterr()
-    assert run_with(1) > 0
-    assert "budget exhaustions" in capsys.readouterr().out
-    assert run_with(256) == 0
-
-
 def test_step_config_from_config():
-    assert resolve_engine(_cfg(engine="auto")) == "loops"
     sc = step_config_from(_cfg(engine="auto"))
-    assert sc.engine == "loops" and not sc.opt.unroll and sc.opt.fitness_impl == "kernel"
-    assert (sc.max_fusions, sc.gap, sc.opt.iters, sc.max_nms_records) == (4, 5, 6, 256)
-    sc2 = step_config_from(_cfg(engine="unrolled", **{"association.max_nms_sweeps": 7,
-                                                      "box_fusion.fitness_impl": "xla"}))
-    assert sc2.engine == "unrolled" and sc2.opt.unroll and sc2.max_nms_sweeps == 7
+    assert sc.opt.fitness_impl == "kernel"
+    assert (sc.max_fusions, sc.gap, sc.opt.iters) == (4, 5, 6)
+    sc2 = step_config_from(_cfg(**{"box_fusion.fitness_impl": "xla"}))
     assert sc2.opt.fitness_impl == "reference"
-    with pytest.raises(ValueError):
-        resolve_engine(_cfg(engine="bogus"))
+    with pytest.raises(ValueError, match="engine"):
+        step_config_from(_cfg(engine="bogus"))
     with pytest.raises(ValueError, match="fitness_impl"):
         step_config_from(_cfg(**{"box_fusion.fitness_impl": "bogus"}))
-    # the same values as the JAX package reads from the same file
+    # the same values as the JAX package reads from the same file, in every
+    # field the two packages share
     from boxfusion_tpu.runtime.device_pipeline import step_config_from as jax_step_config_from
 
     want = dataclasses.asdict(jax_step_config_from(_cfg(jax_load_config)))
     got = dataclasses.asdict(sc)
-    for k, v in want.items():
+    for k, v in got.items():
         if k != "opt":
-            assert got[k] == v, k
-    for k in ("iters", "center_init_size", "shape_scaling_coefficient", "beta", "unroll"):
+            assert v == want[k], k
+    for k in ("iters", "center_init_size", "shape_scaling_coefficient", "beta"):
         assert got["opt"][k] == want["opt"][k], k
+
+
+@pytest.mark.parametrize("engine", ["loops", "unrolled"])
+def test_step_config_from_engine_key(engine):
+    """association.engine: "loops" names the port's one step, as "auto"
+    does; the JAX package's "unrolled" is refused, not run as "loops"."""
+    if engine == "loops":
+        assert step_config_from(_cfg(engine="loops")) == step_config_from(_cfg(engine="auto"))
+    else:
+        with pytest.raises(ValueError, match="one step engine"):
+            step_config_from(_cfg(engine=engine))
 
 
 # ------------------------------------------------- state carried across stacks

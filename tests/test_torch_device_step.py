@@ -52,10 +52,9 @@ HW = (384.0, 512.0)
 def _cfgs(**kw):
     """The same StepConfig for both packages (the optimizer's too)."""
     opt = dict(iters=6)
-    engine = kw.get("engine", "loops")
     return (
-        jstep.StepConfig(**kw, opt=JaxOpt(**opt, fitness_impl="xla", unroll=engine == "unrolled")),
-        step.StepConfig(**kw, opt=PSTOptConfig(**opt, unroll=engine == "unrolled")),
+        jstep.StepConfig(**kw, opt=JaxOpt(**opt, fitness_impl="xla")),
+        step.StepConfig(**kw, opt=PSTOptConfig(**opt)),
     )
 
 
@@ -270,15 +269,6 @@ def test_record_core_matches_jax(i, j, extra, case):
         assert not keep_out[0] and keep_out[3] and fcount[0] == 3
     if case == "B_merge_truncates":
         assert int(trunc) == 2 and fcount[3] == 5
-    # a gated-off body writes nothing
-    ten2 = [torch.from_numpy(np.array(t[k])) for k in ("flist", "fcount", "fflag")] + [torch.from_numpy(keep.copy())]
-    off = step._record_core(*ten2, torch.tensor([i]), torch.tensor([j]), torch.tensor(extra),
-                            torch.from_numpy(t["obs_pose"]), torch.from_numpy(t["init_id"]), cfg,
-                            gate=torch.tensor(False))
-    assert int(off) == 0
-    for g, name in zip(ten2, ("flist", "fcount", "fflag")):
-        np.testing.assert_array_equal(g.numpy(), t[name], err_msg=name)
-    np.testing.assert_array_equal(ten2[3].numpy(), keep)
 
 
 # ----------------------------------------------------------------------- NMS
@@ -286,54 +276,41 @@ def test_argmax_and_rank_break_score_ties_by_larger_slot():
     scores = torch.tensor([0.5, 0.9, 0.9, 0.1, 0.9, 0.5])
     mask = torch.tensor([True, True, True, True, False, True])
     assert int(step._argmax_score_desc(scores, mask)) == 2
-    want = np.asarray(jstep._score_rank(jnp.asarray(scores.numpy())))
-    np.testing.assert_array_equal(step._score_rank(scores).numpy(), want)
-    assert list(want) == [4, 2, 1, 5, 0, 3]
 
 
-@pytest.mark.parametrize("engine", ["loops", "unrolled"])
 @pytest.mark.parametrize("seed", [7, 8])
-def test_nms_greedy_matches_jax(engine, seed):
-    jcfg, cfg = _cfgs(engine=engine)
+def test_nms_greedy_matches_jax(seed):
+    jcfg, cfg = _cfgs()
     tree = make_tree(seed)
     js, ts = both(tree)
-    jfn, tfn = ((jstep._nms_greedy, step._nms_greedy) if engine == "loops"
-                else (jstep._nms_greedy_unrolled, step._nms_greedy_unrolled))
-    jout, jkeep, jsucc = jax.jit(partial(jfn, cfg=jcfg))(js)
+    jout, jkeep, jsucc = jax.jit(partial(jstep._nms_greedy, cfg=jcfg))(js)
     reads0 = host_reads.count
-    tout, tkeep, tsucc = tfn(ts, cfg)
+    tout, tkeep, tsucc = step._nms_greedy(ts, cfg)
     reads = host_reads.count - reads0
     np.testing.assert_array_equal(tkeep.numpy(), np.asarray(jkeep))
     np.testing.assert_array_equal(tsucc.numpy(), np.asarray(jsucc))
     assert_states_match(jout, tout)
     assert 0 < tkeep[:9].sum() < 9 and tsucc.any()
-    assert (reads == 0) if engine == "unrolled" else (reads >= 2)
+    assert reads >= 2
     np.testing.assert_array_equal(state_to_numpy(ts)["flist"], tree["flist"])  # input not written
 
 
-def test_nms_engines_agree_and_budget_exhaustion_surfaces():
-    """loops == unrolled on the crafted state; a starved record budget and a
-    starved sweep budget show in stats[7] as in the JAX engine."""
-    tree = make_tree(7)
-    _, ts = both(tree)
-    _, cfg = _cfgs(engine="unrolled")
-    a, ka, sa = step._nms_greedy(ts, dataclasses.replace(cfg, engine="loops"))
-    b, kb, sb = step._nms_greedy_unrolled(ts, cfg)
-    assert torch.equal(ka, kb) and torch.equal(sa, sb)
-    for name in FIELD_NAMES:
-        assert torch.equal(getattr(a, name), getattr(b, name)), name
-    for kw in (dict(max_nms_records=1), dict(max_nms_sweeps=1)):
-        jcfg, cfg = _cfgs(engine="unrolled", **kw)
-        js, ts = both(tree)
-        jout, jkeep, _ = jax.jit(partial(jstep._nms_greedy_unrolled, cfg=jcfg))(js)
-        tout, tkeep, _ = step._nms_greedy_unrolled(ts, cfg)
-        assert int(tout.stats[7]) == int(jout.stats[7]) > tree["stats"][7]
-        np.testing.assert_array_equal(tkeep.numpy(), np.asarray(jkeep))
-    # gated off: nothing is contested, every valid slot is kept, no counter moves
-    off, koff, soff = step._nms_greedy_unrolled(ts, cfg, gate=torch.tensor(False))
-    assert koff[:9].all() and not koff[9:].any() and not soff.any()
-    for name in FIELD_NAMES:
-        assert torch.equal(getattr(off, name), getattr(ts, name)), name
+def test_nms_greedy_matches_jax_on_a_large_world():
+    """The step kernels' CPU twins at 256 slots with 240 contested: over a
+    hundred picks and a hundred records in one pass."""
+    jcfg, cfg = _cfgs()
+    tree = make_tree(21, G=256, V=5, M=512, n=240, obs_n=400)
+    iou = tree["iou"]
+    iou[np.random.RandomState(22).rand(256, 256) < 0.95] = 0.0  # ~3.6 pairs a row above 0
+    contested, _ = step._contested(state_from_numpy(tree, device="cpu"), cfg)
+    assert int(contested.sum()) >= 100
+    js, ts = both(tree)
+    jout, jkeep, jsucc = jax.jit(partial(jstep._nms_greedy, cfg=jcfg))(js)
+    tout, tkeep, tsucc = step._nms_greedy(ts, cfg)
+    np.testing.assert_array_equal(tkeep.numpy(), np.asarray(jkeep))
+    np.testing.assert_array_equal(tsucc.numpy(), np.asarray(jsucc))
+    assert_states_match(jout, tout)
+    assert 20 < int(tkeep[:240].sum()) < 220 and int(tsucc.sum()) > 10
 
 
 # ------------------------------------------------------------ correspondence
@@ -357,17 +334,12 @@ def _corr_case(seed):
     return tree, keep, success, n_before, proj.astype(np.float32)
 
 
-@pytest.mark.parametrize("engine", ["loops", "unrolled"])
-def test_correspondence_matches_jax(engine):
-    jcfg, cfg = _cfgs(engine=engine)
+def test_correspondence_matches_jax():
+    jcfg, cfg = _cfgs()
     tree, keep, success, n_before, proj = _corr_case(9)
     js, ts = both(tree)
-    if engine == "loops":
-        jfn = jax.jit(partial(jstep._correspondence, cfg=jcfg))
-        tfn = partial(step._correspondence, cfg=cfg)
-    else:
-        jfn = jax.jit(partial(jstep._correspondence_unrolled, cfg=jcfg, kmax=8))
-        tfn = partial(step._correspondence_unrolled, cfg=cfg, kmax=8)
+    jfn = jax.jit(partial(jstep._correspondence, cfg=jcfg))
+    tfn = partial(step._correspondence, cfg=cfg)
     jout, jkeep = jfn(js, jnp.asarray(keep), jnp.asarray(success), jnp.int32(n_before), jnp.asarray(proj))
     reads0 = host_reads.count
     tout, tkeep = tfn(ts, torch.from_numpy(keep), torch.from_numpy(success),
@@ -379,7 +351,7 @@ def test_correspondence_matches_jax(engine):
     bumped = state_to_numpy(tout)["valid_num"] != tree["valid_num"]
     # both outcomes happened: a new box won (its valid_num rose) and an old one did
     assert dropped.any() and bumped[:n_before].any() and bumped[n_before:].any()
-    assert reads == (0 if engine == "unrolled" else 1)
+    assert reads == 1
 
 
 def test_iou2d_rows_is_iou_2d_row_by_row():
@@ -455,9 +427,8 @@ def _fusable_tree(seed):
     return tree
 
 
-@pytest.mark.parametrize("engine", ["loops", "unrolled"])
-def test_fuse_device_matches_jax(engine):
-    jcfg, cfg = _cfgs(engine=engine, max_fusions=3)
+def test_fuse_device_matches_jax():
+    jcfg, cfg = _cfgs(max_fusions=3)
     tree = _fusable_tree(12)
     eligible = (tree["fcount"][:8] >= 3) & ~tree["already_valid"][:8]
     assert eligible.sum() > 3  # some slots are deferred past max_fusions
@@ -472,11 +443,6 @@ def test_fuse_device_matches_jax(engine):
     assert_states_match(jout, tout, fused=moved, skip=("iou",))
     np.testing.assert_allclose(state_to_numpy(tout)["iou"][:8, :8], np.asarray(jout.iou)[:8, :8], atol=0.05)
     assert int(tout.stats[6]) - tree["stats"][6] == eligible.sum() - 3
-    if engine == "unrolled":  # gated off: the state comes back as it was
-        off = step._fuse_device(ts, torch.from_numpy(np.asarray(pst)), torch.from_numpy(K_MAT), *HW, cfg,
-                                gate=torch.tensor(False))
-        for name in FIELD_NAMES:
-            assert torch.equal(getattr(off, name), getattr(ts, name)), name
 
 
 # ------------------------------------------------------------- the whole step
@@ -486,13 +452,16 @@ def _meta(pose, frame_idx):
     return m
 
 
-@pytest.mark.parametrize("engine", ["loops", "unrolled"])
-def test_keyframe_step_entries_match_each_other_and_jax(engine):
+# the whole step's configuration in the cases below: one JAX compile serves
+# every case that keeps it and the world's shapes
+STEP_KW = dict(score_thresh=0.3, uv_bound=False, floor_mask=False, max_fusions=3, check_valid=True, gap=5)
+
+
+def test_keyframe_step_entries_match_each_other_and_jax():
     """One keyframe on a populated world through keyframe_step,
     keyframe_step_devdet and keyframe_step_packed: the three entries give one
     state, and it is the JAX step's."""
-    jcfg, cfg = _cfgs(engine=engine, score_thresh=0.3, uv_bound=False, floor_mask=False,
-                      max_fusions=3, check_valid=True, gap=5)
+    jcfg, cfg = _cfgs(**STEP_KW)
     tree = _fusable_tree(13)
     np.fill_diagonal(tree["iou"], 0.0)
     pose = np.eye(4, dtype=np.float32)
@@ -527,3 +496,130 @@ def test_keyframe_step_entries_match_each_other_and_jax(engine):
     assert int(a.n) != 8 + 8 and int(a.stats[3]) == tree["stats"][3] + 1
     assert np.asarray(jout.fflag)[:n].any()
     np.testing.assert_array_equal(state_to_numpy(ts)["xyzlhw"], tree["xyzlhw"])  # input not written
+
+
+def _step_both(tree, det, **kw):
+    """One keyframe (frame 40, identity pose, kmax 10) through the JAX step and
+    the port's; returns (JAX state, port state, the port's read sites)."""
+    jcfg, cfg = _cfgs(**{**STEP_KW, **kw})
+    js, ts = both(tree)
+    pst = np.asarray(jax_load_pst(None, 128))
+    meta = _meta(np.eye(4, dtype=np.float32), 40)
+    jout = jstep.keyframe_step_devdet(js, jdet(det), jnp.asarray(meta), jnp.asarray(pst), jcfg, 10)
+    with _read_sites() as sites:
+        tout = step.keyframe_step_devdet(ts, tdet(det), meta, torch.from_numpy(pst), cfg, 10)
+    return jout, tout, sites
+
+
+class _read_sites:
+    """The sites of the host reads made inside the block, in order."""
+
+    def __enter__(self):
+        from boxfusion_tpu_torch.utils import device
+
+        sites, self.saved = [], device._Read
+
+        class Recorded(device._Read):
+            def __init__(self, reads, site):
+                sites.append(site)
+                super().__init__(reads, site)
+
+        device._Read = Recorded
+        return sites
+
+    def __exit__(self, *exc):
+        from boxfusion_tpu_torch.utils import device
+
+        device._Read = self.saved
+
+
+@pytest.mark.parametrize("budget,truncated", [(5, 8), (13, 0)], ids=["below", "equal"])
+def test_gated_pair_truncation_matches_jax(budget, truncated):
+    """max_gated_pairs below and at the keyframe's 13 gated pairs: the pairs
+    past it are counted (stats[2]) and scored 0, as in the JAX step."""
+    tree = _fusable_tree(13)
+    np.fill_diagonal(tree["iou"], 0.0)
+    det = make_det(14, K=8, near=tree)
+    det["scores"][:4] = [0.9, 0.8, 0.7, 0.6]
+    jout, tout, sites = _step_both(tree, det, fusion_use=False, max_gated_pairs=budget)
+    assert int(tout.stats[2]) - tree["stats"][2] == truncated
+    assert_states_match(jout, tout)
+    assert sites.count("iou.gated") == 1
+
+
+def test_keyframe_with_every_new_box_suppressed_stops_after_go(monkeypatch):
+    """Every new detection lies on a higher-scoring world box: NMS suppresses
+    all of them, and the step ends after the ``step.go`` read -- no
+    correspondence, no stale drop, no fusion -- in the JAX step's state."""
+    def never(*args, **kw):
+        raise AssertionError("the step went past step.go")
+
+    monkeypatch.setattr(step, "_correspondence", never)
+    monkeypatch.setattr(step, "_fuse_device", never)
+    tree = _fusable_tree(13)
+    tree["iou"][:] = 0.0
+    tree["scores"][:4] = 0.95
+    tree["valid_num"][5], tree["frame_id"][5] = 0.0, 0  # stale: the drop would take it
+    det = make_det(14, K=8, near=tree)
+    det["R"][:4] = tree["R"][:4]
+    det["scores"][:] = [0.5, 0.5, 0.45, 0.4, 0.1, 0.1, 0.1, 0.1]  # the last four fail the filter
+    jout, tout, sites = _step_both(tree, det)
+    assert_states_match(jout, tout)
+    assert int(tout.n) == tree["n"] and sites[-1] == "step.go" and "correspond" not in sites
+    eligible = (tree["fcount"][:8] >= 3) & ~tree["already_valid"][:8]
+    assert eligible.any()  # a step that went on would fuse
+
+
+def test_jax_snapshot_budget_count_passes_through_a_keyframe():
+    """stats[7], which only the JAX package's unrolled engine writes, crosses
+    state_from_numpy, a port keyframe and export_world unchanged."""
+    from boxfusion_tpu_torch.runtime.device_state import export_world
+
+    tree = _fusable_tree(13)
+    np.fill_diagonal(tree["iou"], 0.0)
+    tree["stats"][7] = 5
+    det = make_det(14, K=8, near=tree)
+    det["scores"][:4] = [0.9, 0.8, 0.7, 0.6]
+    jout, tout, _ = _step_both(tree, det)
+    got = export_world(tout)["stats"]
+    assert got["nms_budget_exhausted"] == 5 and got["keyframes"] == tree["stats"][3] + 1
+    assert list(got.values()) == np.asarray(jout.stats).tolist()
+
+
+def _reads_det(centers, scores):
+    n = len(centers)
+    return dict(
+        scores=torch.tensor(scores, dtype=torch.float32),
+        pred_boxes=torch.tensor([[10.0, 10.0, 30.0, 30.0]] * n),
+        boxes3d=torch.cat([torch.tensor(centers, dtype=torch.float32), torch.full((n, 3), 0.4)], 1),
+        R=torch.eye(3).repeat(n, 1, 1),
+        proj_xy=torch.zeros(n, 2),
+        category=torch.zeros(n, dtype=torch.int32),
+    )
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("first", ["step.gate", "iou.gated"]),
+    ("filtered", ["step.gate"]),
+    ("new_rows", ["step.gate", "iou.gated", "nms", "nms", "step.go", "correspond", "fuse.done", "iou.gated"]),
+], ids=["first", "filtered", "new_rows"])
+def test_host_reads_per_keyframe(kind, want):
+    """The reads of one keyframe on the CPU, by site, on a fixed scene: the
+    first keyframe, one whose detections all fail the filter, and one with
+    new rows (one suppressed, one kept; no fusion list long enough to fuse)."""
+    cfg = step.StepConfig(score_thresh=0.3, uv_bound=False, floor_mask=False, max_fusions=3)
+    state = init_state(16, 5, 64, device="cpu")
+    pst = torch.zeros(128, 6)
+    A, B, C = [0.0, 0.0, 3.0], [4.0, 0.0, 3.0], [-4.0, 0.0, 3.0]
+    keyframes = {"first": _reads_det([A, B], [0.8, 0.8]),
+                 "filtered": _reads_det([A, C], [0.1, 0.1]),
+                 "new_rows": _reads_det([[0.02, 0.0, 3.0], C], [0.7, 0.8])}
+    for i, (name, det) in enumerate(keyframes.items()):
+        reads = host_reads.count
+        with _read_sites() as sites:
+            state = step.keyframe_step(state, det, pst, np.eye(4), K_MAT, K_MAT, HW, 5 * i, cfg)
+        assert host_reads.count - reads == len(sites)
+        if name == kind:
+            break
+    assert sites == want
+    assert int(state.n) == {"first": 2, "filtered": 2, "new_rows": 3}[kind]

@@ -220,7 +220,7 @@ def _scan(dev, twins: bool):
     from boxfusion_tpu_torch.data.synthetic import OracleDetector, SyntheticSequence
     from boxfusion_tpu_torch.runtime import DevicePipeline
 
-    cfg = _oracle_config("loops")
+    cfg = _oracle_config()
     cfg["data"]._data["gap"] = 1
     seq = SyntheticSequence(n_frames=30, n_boxes=24)
     pipe = DevicePipeline(cfg, OracleDetector(seq, noise=0.05), capacity=512, device=dev)
