@@ -19,6 +19,12 @@ probabilities cast to v's dtype, LayerNorm statistics in float32, ``ln_post``
 on the class token, final projection in float32.  ``conv1`` is a
 stride-``patch`` patchify and runs as a reshape and one matmul (no cuDNN, so
 no TF32 convolution; the package also turns TF32 off at import).
+
+Each residual add and the LayerNorm after it are one ``add_norm``: a block's
+``x + out_proj(o)`` with its ``ln_2``, its closing ``x + c_proj(h)`` with the
+next block's ``ln_1`` (``_Transformer.chain``).  On a bfloat16 CUDA stream
+that is one launch of ``ops/layer_norm_kernel.py:add_layer_norm``; anywhere
+else, the add and the ``LayerNorm`` it replaces.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from boxfusion_tpu_torch.ops.attention_kernel import (
     whole_seq_attention,
     whole_seq_attention_reference,
 )
+from boxfusion_tpu_torch.ops.layer_norm_kernel import add_layer_norm
 from boxfusion_tpu_torch.utils.device import torch_dtype
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -111,6 +118,23 @@ class CLIPConfig:
         return CLIPConfig()
 
 
+def add_norm(x: torch.Tensor, d: Optional[torch.Tensor], norm: LayerNorm):
+    """``(s, norm(s))`` for the residual stream ``s = x + d`` (``s = x``
+    without ``d``).
+
+    A bfloat16 CUDA stream under a bfloat16 ``norm``, outside autograd, takes
+    one ``add_layer_norm`` launch (s bit-equal, the norm within a bfloat16
+    ulp); anything else (CPU, float32, a graph that records gradients) runs
+    the composition that launch replaces: the add in the compute dtype, then
+    ``norm``."""
+    if (x.is_cuda and x.dtype == torch.bfloat16 and norm.compute_dtype == torch.bfloat16
+            and not (torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, d, norm.weight, norm.bias)))):
+        return add_layer_norm(x, d, norm.weight, norm.bias, norm.eps)
+    s = x if d is None else x + d
+    return s, norm(s)
+
+
 def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "quick":
         return x * torch.sigmoid(1.702 * x)
@@ -160,10 +184,19 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 attn_impl: str = "xla") -> torch.Tensor:
+        """The block's output for the residual stream ``x``."""
+        return self.step(x, add_norm(x, None, self.ln_1)[1], None, mask, attn_impl)[0]
+
+    def step(self, x: torch.Tensor, h: torch.Tensor, next_norm: Optional[LayerNorm],
+             mask: Optional[torch.Tensor] = None, attn_impl: str = "xla"):
+        """The block on the residual stream ``x``, given ``h = ln_1(x)``.
+
+        Returns ``(x', next_norm(x'))``, ``x'`` the block's output, its
+        closing add and ``next_norm`` in one ``add_norm``; ``(x', None)``
+        without ``next_norm``."""
         dt = self.compute_dtype
         d = x.shape[-1]
         hd = d // self.heads
-        h = self.ln_1(x)
         qkv = F.linear(h, self.attn.in_proj_weight.to(dt), self.attn.in_proj_bias.to(dt))
         q, k, v = qkv.chunk(3, dim=-1)
         if attn_impl == "kernel" and mask is None:
@@ -179,9 +212,15 @@ class ResidualBlock(nn.Module):
             vh = v.reshape(B, N, self.heads, hd).transpose(1, 2)
             attn = torch.softmax(((qh @ kh) + mask).float(), dim=-1).to(v.dtype)
             o = (attn @ vh).transpose(1, 2).reshape(B, N, d)
-        x = x + self.attn.out_proj(o)
-        h = _gelu(self.mlp.c_fc(self.ln_2(x)), self.gelu)
-        return x + self.mlp.c_proj(h)
+        x, h = add_norm(x, self.attn.out_proj(o), self.ln_2)
+        # rebound as they go, so that ln_2's output is freed before the GELU,
+        # and c_fc's before c_proj (the card's peak memory is at the MLP)
+        h = self.mlp.c_fc(h)
+        h = _gelu(h, self.gelu)
+        out = self.mlp.c_proj(h)
+        if next_norm is None:
+            return x + out, None
+        return add_norm(x, out, next_norm)
 
 
 class _Transformer(nn.Module):
@@ -190,6 +229,18 @@ class _Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualBlock(d, heads, gelu, dtype=dtype, **block_kw) for _ in range(layers)
         )
+
+    def chain(self, final_norm: Optional[LayerNorm] = None):
+        """Each block with the norm its closing add feeds, in one
+        ``add_norm``: the next block's ``ln_1``, and ``final_norm`` after the
+        last block (None: a plain add).
+
+        A tower runs ``h = add_norm(x, None, blocks[0].ln_1)[1]``, then ``x, h
+        = blk.step(x, h, next_norm)`` over these pairs, in its own loop: a
+        helper that took ``x`` would keep the tower's first stream alive
+        through every block."""
+        blocks = list(self.resblocks)
+        return zip(blocks, [b.ln_1 for b in blocks[1:]] + [final_norm])
 
 
 class CLIPImageTower(nn.Module):
@@ -219,12 +270,13 @@ class CLIPImageTower(nn.Module):
         x = x.reshape(B, -1, c.width)
         cls = self.class_embedding.to(dt)[None, None].expand(B, 1, c.width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding[None].to(dt)
-        x = self.ln_pre(x)
+        x = add_norm(x, None, self.ln_pre)[1]
         impl = c.attn_impl
         if impl == "auto":
             impl = "kernel" if x.device.type == "cuda" else "xla"
-        for blk in self.transformer.resblocks:
-            x = blk(x, attn_impl=impl)
+        h = add_norm(x, None, self.transformer.resblocks[0].ln_1)[1]
+        for blk, next_norm in self.transformer.chain():
+            x, h = blk.step(x, h, next_norm, attn_impl=impl)
         x = self.ln_post(x[:, 0])
         # final projection + the cosine-similarity math downstream stay float32
         return x.float() @ self.proj

@@ -20,7 +20,8 @@ card).  The pool's one-query attention is plain torch: its products in the
 compute dtype, its softmax in float32, the probe's query projection once a
 call.  Numerics otherwise as ``CLIPImageTower``'s: parameters float32,
 matmuls in ``cfg.dtype``, LayerNorm statistics in float32, a float32
-embedding.  The head runs inside the span ``label.pool``
+embedding; the last block's closing add and ``LN_post`` are one ``add_norm``
+(``model.py``).  The head runs inside the span ``label.pool``
 (``utils/profiling.span``).
 
 Parameter names follow the port's blocks (``transformer.resblocks.{i}``)
@@ -42,6 +43,7 @@ from boxfusion_tpu_torch.models.clip.model import (
     ATTN_IMPLS,
     _Attention,
     _Transformer,
+    add_norm,
     init_clip_weights,
 )
 from boxfusion_tpu_torch.models.cutr.layers import LayerNorm, Linear, PatchConv
@@ -155,11 +157,11 @@ class SigLIPImageTower(nn.Module):
         impl = c.attn_impl
         if impl == "auto":
             impl = "kernel" if x.device.type == "cuda" else "xla"
-        for blk in self.transformer.resblocks:
-            x = blk(x, attn_impl=impl)
-        y = self.post_layernorm(x)
+        h = add_norm(x, None, self.transformer.resblocks[0].ln_1)[1]
+        for blk, next_norm in self.transformer.chain(self.post_layernorm):
+            x, h = blk.step(x, h, next_norm, attn_impl=impl)
         with span("label.pool"):
-            return self.head(y)
+            return self.head(h)
 
     def init_random(self, gen: torch.Generator) -> None:
         init_siglip_weights(self, gen)

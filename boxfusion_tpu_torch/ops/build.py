@@ -17,7 +17,9 @@ compare against tolerances of 2e-5 x magnitude, where a fused multiply-add
 moves a boundary decision.  So does the step kernel, whose pose tests fuse
 a multiply and an add only where its source says fmaf, as PyTorch's own
 operations do.  The two attention kernels are held to a tolerance, not to
-bit equality, and keep nvcc's default FMA contraction.
+bit equality, and keep nvcc's default FMA contraction; so does the add +
+LayerNorm kernel, whose add is a lone float32 add (bit-equal either way)
+and whose norm is held to one bfloat16 ulp.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ SOURCES: Dict[str, str] = {
     "attention_kernel": "attention_kernel.cu",
     "tiled_attention_kernel": "tiled_attention_kernel.cu",
     "step_kernel": "step_kernel.cu",
+    "layer_norm_kernel": "layer_norm_kernel.cu",
 }
 
 _COMMON_FLAGS = (
@@ -55,6 +58,7 @@ NVCC_FLAGS: Dict[str, Tuple[str, ...]] = {
     "attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
     "tiled_attention_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
     "step_kernel": _COMMON_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
+    "layer_norm_kernel": _COMMON_FLAGS + ("-Xptxas", "-v"),
 }
 
 

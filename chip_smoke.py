@@ -227,7 +227,7 @@ SEARCH_TOL, ONE_ITER_TOL = 5e-3, 1e-3
 # phase that runs the ablation adds tiled_attention (counted_kernels).
 COUNTED_KERNELS = (("fitness_kernel", "fitness_cells"), ("pst_search", "pst_search"),
                    ("attention_kernel", "whole_seq_attention"), ("step_kernel", "nms_greedy"),
-                   ("step_kernel", "correspond_hits"))
+                   ("step_kernel", "correspond_hits"), ("layer_norm_kernel", "add_layer_norm"))
 
 # The step kernels (ops/step_kernel.py) at the cells' shapes: world slots,
 # view slots, observation-bank rows (benchmark/configs/*.json); the pose
@@ -1028,9 +1028,102 @@ def check_step_kernel(device) -> dict:
     return rec
 
 
+# add_layer_norm at the towers' shapes: name -> (rows, width, eps), the rows
+# those of the 96-crop label bucket (crops x tokens).  The first is timed for
+# the kernels record.
+LAYER_NORM_CASES = {
+    "vit_h14": (96 * 257, 1280, 1e-5),
+    "vit_l14": (96 * 257, 1024, 1e-5),
+    "siglip_so400m": (96 * 729, 1152, 1e-6),
+}
+LAYER_NORM_ULP_FLOOR = 2.0 ** -10
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp at each |t|, and at least the ulp at
+    LAYER_NORM_ULP_FLOOR (2^-17).  add_layer_norm's y is held within it of
+    its twin's: the two sum the float32 statistics in other orders, which
+    moves a normalised value by ~1e-7 of the row's scale, and so a rounding
+    to bfloat16 by at most one ulp -- except near 0, where an ulp is smaller
+    than that move: hence the floor."""
+    import torch
+
+    a = t.float().abs().clamp_min(LAYER_NORM_ULP_FLOOR)
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a)[1] - 8)
+
+
+def layer_norm_inputs(device, rows, width, residual=True, seed=0):
+    """(x, d, weight, bias) for add_layer_norm: bfloat16 rows of mean 0.5
+    and deviation 3 (d unit normal; None without ``residual``), float32
+    weight 1 + N(0, 0.1) and bias N(0, 0.1), from a seeded generator."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (3 * torch.randn(rows, width, generator=gen, device=device) + 0.5).bfloat16()
+    d = torch.randn(rows, width, generator=gen, device=device).bfloat16() if residual else None
+    weight = 1 + 0.1 * torch.randn(width, generator=gen, device=device)
+    bias = 0.1 * torch.randn(width, generator=gen, device=device)
+    return x, d, weight, bias
+
+
+def hold_layer_norm(x, d, weight, bias, eps, what: str) -> float:
+    """add_layer_norm against its twin on the same tensors: s bit-equal, y
+    within bf16_ulp; returns the largest |y - y_twin|."""
+    import torch
+
+    from boxfusion_tpu_torch.ops.layer_norm_kernel import add_layer_norm, add_layer_norm_reference
+
+    s, y = add_layer_norm(x, d, weight, bias, eps)
+    s_want, y_want = add_layer_norm_reference(x, d, weight, bias, eps)
+    sync(x.device)
+    if not torch.equal(s, s_want):
+        raise RuntimeError(f"add_layer_norm[{what}]: s differs from x + d")
+    diff = (y.float() - y_want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if y.dtype != x.dtype or y.shape != x.shape or bool((diff > bf16_ulp(y_want)).any()):
+        raise RuntimeError(f"add_layer_norm[{what}]: y beyond one bfloat16 ulp of its twin (max |diff| {err})")
+    return err
+
+
+def check_layer_norm(device) -> dict:
+    """add_layer_norm at each tower's shape, with and without the residual:
+    held against its twin, its milliseconds beside the twin's (the add, the
+    two casts and F.layer_norm the blocks ran before), the bound by bytes
+    (8 an element with the residual, 4 without, at 3.35 TB/s) and its share,
+    registers, spills, shared memory."""
+    from boxfusion_tpu_torch.ops.layer_norm_kernel import (
+        add_layer_norm,
+        add_layer_norm_reference,
+        kernel_info,
+    )
+
+    cases = []
+    for case, (rows, width, eps) in LAYER_NORM_CASES.items():
+        for residual in (True, False):
+            x, d, w, b = layer_norm_inputs(device, rows, width, residual)
+            err = hold_layer_norm(x, d, w, b, eps, f"{case}, residual {residual}")
+            # every launch finds the L2 cold: x, d, s, y are 51-161 MB each
+            ms = cuda_ms(lambda: add_layer_norm(x, d, w, b, eps), reps=50, warmup=5)
+            plain_ms = cuda_ms(lambda: add_layer_norm_reference(x, d, w, b, eps), reps=20, warmup=3)
+            n_bytes = (8 if residual else 4) * rows * width
+            bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+            rec = dict(phase="kernels", name="add_layer_norm", case=case, rows=rows, width=width,
+                       eps=eps, residual=residual, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bytes=n_bytes, bound_ms=bound_ms, bound_share=bound_ms / ms,
+                       achieved_tb_s=n_bytes / (ms * 1e-3) / 1e12, **kernel_info(width, residual))
+            print(json.dumps(rec))
+            cases.append(rec)
+    main = cases[0]
+    return dict(name="add_layer_norm", route="cuda", source="boxfusion_tpu_torch/csrc/layer_norm_kernel.cu",
+                replaces=None, max_abs_err=max(c["max_abs_err"] for c in cases), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+                cases=[{k: c[k] for k in ("case", "residual", "ms", "plain_ms", "bound_ms", "bound_share",
+                                          "registers", "local_bytes")} for c in cases])
+
+
 def phase_kernels(device) -> list:
     return [check_fitness(device), check_pst_search(device), check_attention(device),
-            check_tiled_attention(device), check_step_kernel(device)]
+            check_tiled_attention(device), check_step_kernel(device), check_layer_norm(device)]
 
 
 def phase_ablation(device) -> dict:
@@ -1219,6 +1312,10 @@ def phase_main(device) -> dict:
         raise RuntimeError("labelled main path: whole_seq_attention was never launched")
     if rec["launches"]["whole_seq_attention"] != rec["clip"]["layers"] * rec["labelled_keyframes"]:
         raise RuntimeError("labelled main path: not one attention launch per tower block")
+    # ln_pre, block 0's ln_1, and two a block (the add before ln_2, the
+    # closing add with the next ln_1; the last block's add stays plain)
+    if rec["launches"]["add_layer_norm"] != (2 * rec["clip"]["layers"] + 1) * rec["labelled_keyframes"]:
+        raise RuntimeError("labelled main path: not two add_layer_norm launches per tower block")
     return rec
 
 
@@ -3179,7 +3276,7 @@ def main() -> int:
         by_path[path] = {**counts, "tiled_attention": 0}
 
     # launches: each kernel's count over the path that runs it -- for
-    # pst_search and whole_seq_attention the sum over the paths of phases 3,
+    # pst_search, whole_seq_attention and add_layer_norm the sum over the paths of phases 3,
     # 7, 8, 9, 11, 12, 13, 14 and 15 (labelled host and device engines, every
     # fused and batched run, the train steps, the native stream, the traced
     # runs, the A12b tools, the bench's phases, its traced headline run and
@@ -3193,7 +3290,7 @@ def main() -> int:
     launches["fitness_cells"] = next(r for r in krecs if r["name"] == "pst_search")[
         "eager_fitness_cells_launches"]
     path_counts = {}
-    for name in ("pst_search", "whole_seq_attention"):
+    for name in ("pst_search", "whole_seq_attention", "add_layer_norm"):
         path_counts[name] = {path: counts[name] for path, counts in by_path.items()}
         launches[name] = sum(path_counts[name].values())
     for name in ("fitness_cells", "tiled_attention"):  # their own paths' counts stay under "launches"
@@ -3205,7 +3302,8 @@ def main() -> int:
                             "smem_bytes", "threads", "cluster", "max_active_clusters"),
              "whole_seq_attention": ATTENTION_RECORD_KEYS,
              "tiled_attention": KERNEL_INFO_KEYS + ("bf16",),
-             "step_kernel": ("held", "times", "info", "pose_bits")}
+             "step_kernel": ("held", "times", "info", "pose_bits"),
+             "add_layer_norm": ("cases",)}
     # the step kernels: each path's launches of nms_greedy and
     # correspond_hits (one a stage entered on a card), and their sums
     path_counts["step_kernel"] = {
